@@ -1,0 +1,106 @@
+"""The weight bridge: JAX parameter trees -> the port's modules.
+
+``from_jax_params`` takes the generator and mapping-network variable
+trees as the JAX package writes them (``{"params": {...}}``, nested dicts
+of numpy arrays, e.g. from ``export.load_inference_artifact``) and copies
+them into a ``Models``. Conv kernels go HWIO -> OIHW, linear weights
+``[in, out]`` -> ``[out, in]``. The leaf names are the ones the JAX
+``Generator`` and ``MappingNetwork`` produce. Every shape is checked, and
+a missing or extra leaf raises.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Iterator, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from one_to_many_gan_torch.core.state import Models
+from one_to_many_gan_torch.ops import EqualizedConv, EqualizedLinear, ModulatedConv
+
+
+def _flatten(tree, prefix: str, out: dict) -> None:
+    if isinstance(tree, Mapping):
+        for key, sub in tree.items():
+            _flatten(sub, f"{prefix}/{key}" if prefix else key, out)
+    else:
+        out[prefix] = np.asarray(tree)
+
+
+def _layer_leaves(name: str, layer: nn.Module) -> Iterator[tuple[str, nn.Parameter, str]]:
+    """(JAX leaf path, port parameter, layout) for one layer."""
+    if isinstance(layer, EqualizedLinear):
+        yield f"{name}/weight", layer.weight, "linear"
+        yield f"{name}/bias", layer.bias, "vector"
+    elif isinstance(layer, EqualizedConv):
+        yield f"{name}/weight", layer.weight, "conv"
+        if layer.bias is not None:
+            yield f"{name}/bias", layer.bias, "vector"
+    elif isinstance(layer, ModulatedConv):
+        yield f"{name}/weight", layer.weight, "conv"
+        yield from _layer_leaves(f"{name}/to_style", layer.to_style)
+    else:
+        msg = f"no JAX layout for {type(layer).__name__}"
+        raise TypeError(msg)
+
+
+def _generator_layers(gen) -> Iterator[tuple[str, nn.Module]]:
+    yield "enc_stem", gen.enc_stem
+    for i, conv in enumerate(gen.enc_down):
+        yield f"enc_down_{i}", conv
+    for i, block in enumerate(gen.enc_blocks):
+        yield f"enc_blocks_{i}/EqualizedConv_0", block.conv0
+        yield f"enc_blocks_{i}/EqualizedConv_1", block.conv1
+    for i, block in enumerate(gen.dec_blocks):
+        yield f"dec_blocks_{i}/ModulatedConv_0", block.conv0
+        yield f"dec_blocks_{i}/ModulatedConv_1", block.conv1
+    for i, conv in enumerate(gen.dec_up):
+        yield f"dec_up_{i}", conv
+    yield "out_conv", gen.out_conv
+
+
+def _mapping_layers(mapping) -> Iterator[tuple[str, nn.Module]]:
+    for i, layer in enumerate(mapping.layers):
+        yield f"EqualizedLinear_{i}", layer
+
+
+def _to_torch_layout(arr: np.ndarray, layout: str) -> np.ndarray:
+    if layout == "conv":
+        return arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr
+    if layout == "linear":
+        return arr.T if arr.ndim == 2 else arr
+    return arr
+
+
+def _load(layers, variables, what: str) -> None:
+    flat: dict[str, np.ndarray] = {}
+    _flatten(variables, "", flat)
+    expected = {}
+    for name, layer in layers:
+        for path, param, layout in _layer_leaves(f"params/{name}", layer):
+            expected[path] = (param, layout)
+    missing = sorted(set(expected) - set(flat))
+    extra = sorted(set(flat) - set(expected))
+    if missing or extra:
+        msg = f"{what} parameter tree mismatch: missing {missing}, unexpected {extra}"
+        raise ValueError(msg)
+    for path, (param, layout) in expected.items():
+        value = _to_torch_layout(flat[path], layout)
+        if tuple(value.shape) != tuple(param.shape):
+            msg = (
+                f"{what} leaf {path}: JAX shape {flat[path].shape} does not give "
+                f"the port's {tuple(param.shape)}"
+            )
+            raise ValueError(msg)
+        with torch.no_grad():
+            param.copy_(torch.from_numpy(np.array(value, dtype=np.float32)))
+
+
+def from_jax_params(models: Models, params_g, params_m) -> Models:
+    """Copy the JAX generator and mapping variables into ``models`` (in
+    place; returned for chaining)."""
+    _load(_generator_layers(models.generator), params_g, "generator")
+    _load(_mapping_layers(models.mapping), params_m, "mapping")
+    return models
