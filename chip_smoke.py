@@ -93,13 +93,12 @@ def phase_environment(torch, build) -> dict:
         f"cuda {torch.version.cuda}  device {torch.cuda.get_device_name(0)}  "
         f"count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    report = build.build(["instance_norm"])
+    info = build.build("instance_norm")
     seconds = time.perf_counter() - t0
-    for name, info in report.items():
-        log(f"built {name}.cu in {info['seconds']:.2f} s")
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
+    log(f"built instance_norm.cu in {info['seconds']:.2f} s")
+    for line in info["log"].splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
     log(f"phase 1 ok: kernels built in {seconds:.2f} s")
     return {"nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
             "build_s": seconds}

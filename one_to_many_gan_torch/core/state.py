@@ -8,7 +8,7 @@ from __future__ import annotations
 import torch
 
 from one_to_many_gan_torch.config import Config
-from one_to_many_gan_torch.device import compute_dtype, select_device
+from one_to_many_gan_torch.device import compute_dtype, disable_tf32, select_device
 from one_to_many_gan_torch.models import Generator, MappingNetwork
 
 
@@ -19,7 +19,8 @@ class Models:
     (in a forked RNG state, so the caller's global RNG is untouched);
     ``convert.from_jax_params`` overwrites them with trained weights.
     ``device`` None means CUDA, and raises without a GPU
-    (``device.select_device``).
+    (``device.select_device``). A float32 config on CUDA turns TF32 off
+    for the process (``device.disable_tf32``).
     """
 
     def __init__(self, config: Config, *, device: str | torch.device | None = None,
@@ -28,6 +29,8 @@ class Models:
         data = config["data"]
         self.device = select_device(device)
         self.dtype = compute_dtype(config)
+        if self.device.type == "cuda" and self.dtype == torch.float32:
+            disable_tf32()
         self.image_size = tuple(data["image_size"])
         self.channels = data["image_channels"]
         self.w_dim = arch["w_dim"]

@@ -3,12 +3,6 @@
 Every entry point runs on ``cuda`` unless the caller asks for the CPU.
 Without a GPU and without that request it raises: it never drops to the
 CPU silently.
-
-TF32 is off: ``torch.backends.cuda.matmul.allow_tf32`` and
-``torch.backends.cudnn.allow_tf32`` are both set False, so a float32
-config computes its convolutions and matmuls in full float32 on the card
-(cuDNN's default would be TF32) and its output can be held to the CPU's.
-A bfloat16 config runs its convolutions in bf16 and is unaffected.
 """
 
 from __future__ import annotations
@@ -32,11 +26,19 @@ def select_device(device: str | torch.device | None = None) -> torch.device:
             "(--device cpu) to run on the CPU"
         )
         raise RuntimeError(msg)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     return dev
 
 
 def compute_dtype(config) -> torch.dtype:
     """Activation dtype of a config: ``[tpu] precision``."""
     return torch.bfloat16 if config["tpu"]["precision"] == "bfloat16" else torch.float32
+
+
+def disable_tf32() -> None:
+    """Turn TF32 off for the process: ``torch.backends.cuda.matmul.allow_tf32``
+    and ``torch.backends.cudnn.allow_tf32`` both False. A float32 config on
+    the card then computes its convolutions and matmuls in full float32
+    (cuDNN's default would be TF32), so its output can be held to the CPU's.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

@@ -4,8 +4,7 @@ Each source ``csrc/<name>.cu`` has a plain C interface and becomes one
 shared library, ``build/kernels/lib<name>-<hash>.so`` at the repository
 root (the hash covers the source and the flags, so an edited source is
 rebuilt). Libraries are built at first use, never at import, from the
-sources in the checkout only. ``build`` starts one ``nvcc`` per source,
-all at once.
+sources in the checkout only.
 """
 
 from __future__ import annotations
@@ -47,38 +46,24 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def build(names: list[str]) -> dict[str, dict]:
-    """Compile every named source not yet built, one ``nvcc`` each, all
-    started together. -> {name: {"seconds": s, "log": nvcc's stderr}}
-    (seconds 0 and an empty log for a library already built). Raises with
-    nvcc's output when a build fails."""
+def build(name: str) -> dict:
+    """Compile ``csrc/<name>.cu`` unless it is built already.
+    -> {"seconds": s, "log": nvcc's output} (0 and "" when it was built).
+    Raises with nvcc's output when the build fails."""
+    out = library_path(name)
+    if out.is_file():
+        return {"seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    started = {}
-    report = {}
-    for name in names:
-        out = library_path(name)
-        if out.is_file():
-            report[name] = {"seconds": 0.0, "log": ""}
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
-        )
-        started[name] = (proc, tmp, out, time.perf_counter())
-    failures = []
-    for name, (proc, tmp, out, t0) in started.items():
-        stdout, stderr = proc.communicate()
-        if proc.returncode != 0:
-            failures.append(f"nvcc failed for {name}.cu:\n{stdout}{stderr}")
-            tmp.unlink(missing_ok=True)
-            continue
-        os.replace(tmp, out)
-        report[name] = {"seconds": time.perf_counter() - t0, "log": stdout + stderr}
-    if failures:
-        raise RuntimeError("\n".join(failures))
-    return report
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        msg = f"nvcc failed for {name}.cu:\n{proc.stdout}{proc.stderr}"
+        raise RuntimeError(msg)
+    os.replace(tmp, out)
+    return {"seconds": time.perf_counter() - t0, "log": proc.stdout + proc.stderr}
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -86,7 +71,7 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            build([name])
+            build(name)
             lib = ctypes.CDLL(str(library_path(name)))
             _loaded[name] = lib
         return lib

@@ -75,7 +75,6 @@ class EqualizedConv(nn.Module):
         *,
         padding: int = 0,
         pad_mode: str = "zero",
-        stride: int = 1,
         use_bias: bool = True,
         dtype: torch.dtype = torch.float32,
     ):
@@ -85,7 +84,6 @@ class EqualizedConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_features)) if use_bias else None
         self.padding = padding
         self.pad_mode = pad_mode
-        self.stride = stride
         self.dtype = dtype
         self.c = he_constant(in_features * k * k, dtype)
 
@@ -93,9 +91,9 @@ class EqualizedConv(nn.Module):
         x = x.to(self.dtype)
         w = self.weight.to(self.dtype) * self.c
         if self.pad_mode == "zero":
-            y = F.conv2d(x, w, stride=self.stride, padding=self.padding)
+            y = F.conv2d(x, w, padding=self.padding)
         else:
-            y = F.conv2d(pad2d(x, self.padding, self.pad_mode), w, stride=self.stride)
+            y = F.conv2d(pad2d(x, self.padding, self.pad_mode), w)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)[:, None, None]
         return y

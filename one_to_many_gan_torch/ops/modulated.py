@@ -34,7 +34,6 @@ class ModulatedConv(nn.Module):
         *,
         padding: int = 1,
         pad_mode: str = "zero",
-        demodulate: bool = True,
         eps: float = 1e-8,
         dtype: torch.dtype = torch.float32,
     ):
@@ -44,7 +43,6 @@ class ModulatedConv(nn.Module):
         self.weight = nn.Parameter(torch.randn(out_features, in_features, k, k))
         self.padding = padding
         self.pad_mode = pad_mode
-        self.demodulate = demodulate
         self.eps = eps
         self.dtype = dtype
         self.c32 = he_constant(in_features * k * k, torch.float32)
@@ -59,8 +57,6 @@ class ModulatedConv(nn.Module):
             y = F.conv2d(x, w, padding=self.padding)
         else:
             y = F.conv2d(pad2d(x, self.padding, self.pad_mode), w)
-        if self.demodulate:
-            wsq = (self.weight * self.c32).square().sum(dim=(2, 3))  # [out, in]
-            d = torch.rsqrt(s.square() @ wsq.T + self.eps)  # [B, out], float32
-            y = y * d[:, :, None, None].to(self.dtype)
-        return y
+        wsq = (self.weight * self.c32).square().sum(dim=(2, 3))  # [out, in]
+        d = torch.rsqrt(s.square() @ wsq.T + self.eps)  # [B, out], float32
+        return y * d[:, :, None, None].to(self.dtype)

@@ -546,12 +546,14 @@ def make_handler(engine: InferenceEngine, stats: _Stats,
                     for i, arr in enumerate(outs):
                         zf.writestr(f"shoemark_{i:04d}.png", _encode_png(arr))
                 body, ctype = buf.getvalue(), "application/zip"
+            # counted before the reply is sent, so a client that has its
+            # reply always finds the request in /stats
+            stats.record((time.perf_counter() - t0) * 1e3)
             self.send_response(200)
             self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)
-            stats.record((time.perf_counter() - t0) * 1e3)
 
     return Handler
 

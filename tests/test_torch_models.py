@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from one_to_many_gan_torch import convert as port_convert
+from one_to_many_gan_torch import device as port_device
 from one_to_many_gan_torch import export as port_export
 from one_to_many_gan_torch.core import Models as PortModels
 from one_to_many_gan_torch.core import make_inference_fns as port_inference_fns
@@ -297,6 +298,26 @@ def test_models_default_to_cuda_and_raise_without_it():
         pytest.skip("this host has a GPU: the default device is usable")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         PortModels(_configs()[1])
+
+
+def _tf32_flags():
+    return torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+
+
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_models_on_the_cpu_leave_tf32_alone(precision, monkeypatch):
+    """Only a float32 config on CUDA turns TF32 off; the CPU never does."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    PortModels(_configs(precision)[1], device="cpu")
+    assert _tf32_flags() == (True, True)
+
+
+def test_disable_tf32_turns_both_flags_off(monkeypatch):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    port_device.disable_tf32()
+    assert _tf32_flags() == (False, False)
 
 
 # --------------------------------------------------------------- isolation
