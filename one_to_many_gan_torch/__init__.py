@@ -1,4 +1,5 @@
-"""one_to_many_gan_torch: the PyTorch + CUDA port of the 1->N serving path.
+"""one_to_many_gan_torch: the PyTorch + CUDA port of the 1->N serving path
+and of the discriminator phase of training.
 
 A second package beside the JAX reference package, for
 an NVIDIA H100. It mirrors the reference's module names so each part has
@@ -7,9 +8,10 @@ NCHW tensors within the models, NHWC images at the public inference
 functions, an explicit ``device`` and explicit ``torch.Generator``s.
 
 The package imports ``torch``, ``numpy``, ``PIL`` and the standard
-library only; it never imports the JAX package. The one TPU kernel on
-this path, the fused instance norm, is a hand-written CUDA kernel
-(``csrc/instance_norm.cu``) built with ``nvcc`` at first use.
+library only; it never imports the JAX package. The TPU kernels on these
+paths, the fused instance norm and the ADA warp forward, are hand-written
+CUDA kernels (``csrc/instance_norm.cu``, ``csrc/warp.cu``) built with
+``nvcc`` at first use.
 """
 
 __version__ = "0.1.0"

@@ -2,9 +2,13 @@
 
 Reads the same schema as the JAX package (``configs/default.toml``): the
 six reference sections plus the optional ``[tpu]`` section, whose
-defaults are filled in below. Of ``[tpu]`` the port reads only
-``precision`` ("float32" or "bfloat16" activations); the other keys are
-validated so that one file configures both packages.
+defaults are filled in below. Of ``[tpu]`` the port reads ``precision``
+("float32" or "bfloat16" activations) and, for training,
+``ada_antialias``; ``check_training_options`` refuses the training
+options it does not run yet. ``ada_pallas`` chooses between two TPU
+implementations of the ADA warp; the port always computes the Pallas
+kernel's numerics, so it ignores the key. The other keys are validated
+so that one file configures both packages.
 """
 
 from __future__ import annotations
@@ -112,3 +116,20 @@ def n_downsamples(config: Config) -> int:
     ceil(log2(min(image_size) / min_latent_resolution))."""
     min_res = min(config["data"]["image_size"])
     return math.ceil(math.log2(min_res / config["architecture"]["min_latent_resolution"]))
+
+
+# [tpu] training options the port does not run yet, with their off value.
+_NOT_PORTED = {"r1_gamma": 0.0, "ema_decay": 0.0, "ada_supersample": False}
+
+
+def check_training_options(config: Config) -> None:
+    """Raise ``NotImplementedError`` for a training option the port does
+    not run yet: R1 (``r1_gamma > 0``), generator EMA (``ema_decay > 0``)
+    or the 2x supersampled ADA warp (``ada_supersample``)."""
+    for key, off in _NOT_PORTED.items():
+        if config["tpu"][key]:
+            msg = (
+                f"tpu.{key} = {config['tpu'][key]!r} is not ported to PyTorch yet "
+                f"(see ROADMAP.md, queue 1); set it to {off!r}"
+            )
+            raise NotImplementedError(msg)

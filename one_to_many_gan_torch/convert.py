@@ -1,12 +1,14 @@
 """The weight bridge: JAX parameter trees -> the port's modules.
 
-``from_jax_params`` takes the generator and mapping-network variable
-trees as the JAX package writes them (``{"params": {...}}``, nested dicts
-of numpy arrays, e.g. from ``export.load_inference_artifact``) and copies
-them into a ``Models``. Conv kernels go HWIO -> OIHW, linear weights
-``[in, out]`` -> ``[out, in]``. The leaf names are the ones the JAX
-``Generator`` and ``MappingNetwork`` produce. Every shape is checked, and
-a missing or extra leaf raises.
+``from_jax_params`` takes the generator, mapping-network and (optionally)
+discriminator variable trees as the JAX package writes them
+(``{"params": {...}}``, nested dicts of numpy arrays, e.g. from
+``export.load_inference_artifact``) and copies them into a ``Models``
+(serving) or a ``TrainState`` (training, which holds the discriminator).
+Conv kernels go HWIO -> OIHW, linear weights ``[in, out]`` -> ``[out,
+in]``. The leaf names are the ones the JAX ``Generator``,
+``MappingNetwork`` and ``Discriminator`` produce. Every shape is checked,
+and a missing or extra leaf raises.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from one_to_many_gan_torch.core.state import Models
+from one_to_many_gan_torch.core.state import Models, TrainState
 from one_to_many_gan_torch.ops import EqualizedConv, EqualizedLinear, ModulatedConv
 
 
@@ -66,6 +68,19 @@ def _mapping_layers(mapping) -> Iterator[tuple[str, nn.Module]]:
         yield f"EqualizedLinear_{i}", layer
 
 
+def _discriminator_layers(disc) -> Iterator[tuple[str, nn.Module]]:
+    for i, conv in enumerate(disc.trunk):
+        yield f"EqualizedConv_{i}", conv
+    yield f"EqualizedConv_{len(disc.trunk)}", disc.head
+
+
+def jax_leaves(layers) -> Iterator[tuple[str, nn.Parameter, str]]:
+    """(JAX leaf path, port parameter, layout) of every leaf of ``layers``
+    (e.g. ``_discriminator_layers(state.discriminator)``)."""
+    for name, layer in layers:
+        yield from _layer_leaves(f"params/{name}", layer)
+
+
 def _to_torch_layout(arr: np.ndarray, layout: str) -> np.ndarray:
     if layout == "conv":
         return arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr
@@ -77,10 +92,7 @@ def _to_torch_layout(arr: np.ndarray, layout: str) -> np.ndarray:
 def _load(layers, variables, what: str) -> None:
     flat: dict[str, np.ndarray] = {}
     _flatten(variables, "", flat)
-    expected = {}
-    for name, layer in layers:
-        for path, param, layout in _layer_leaves(f"params/{name}", layer):
-            expected[path] = (param, layout)
+    expected = {path: (param, layout) for path, param, layout in jax_leaves(layers)}
     missing = sorted(set(expected) - set(flat))
     extra = sorted(set(flat) - set(expected))
     if missing or extra:
@@ -98,9 +110,15 @@ def _load(layers, variables, what: str) -> None:
             param.copy_(torch.from_numpy(np.array(value, dtype=np.float32)))
 
 
-def from_jax_params(models: Models, params_g, params_m) -> Models:
-    """Copy the JAX generator and mapping variables into ``models`` (in
-    place; returned for chaining)."""
-    _load(_generator_layers(models.generator), params_g, "generator")
-    _load(_mapping_layers(models.mapping), params_m, "mapping")
-    return models
+def from_jax_params(
+    target: Models | TrainState, params_g, params_m, params_d=None
+) -> Models | TrainState:
+    """Copy the JAX generator, mapping and (when given) discriminator
+    variables into ``target`` (in place; returned for chaining): a
+    ``Models`` for serving, or a ``TrainState``, the holder of the
+    discriminator."""
+    _load(_generator_layers(target.generator), params_g, "generator")
+    _load(_mapping_layers(target.mapping), params_m, "mapping")
+    if params_d is not None:
+        _load(_discriminator_layers(target.discriminator), params_d, "discriminator")
+    return target

@@ -34,6 +34,20 @@ class StyleRngs(NamedTuple):
     crossover: torch.Tensor  # scalar int in [0, n_blocks)
 
 
+def draw_style_rngs(
+    generator: torch.Generator, b: int, w_dim: int, n_blocks: int, mixing_prob: float
+) -> StyleRngs:
+    """One style sample's draws from ``generator``, with the JAX package's
+    distributions (``sample_style_rngs``)."""
+    device = generator.device
+    return StyleRngs(
+        z1=torch.randn((b, w_dim), generator=generator, device=device),
+        z2=torch.randn((b, w_dim), generator=generator, device=device),
+        mix=torch.rand((), generator=generator, device=device) < mixing_prob,
+        crossover=torch.randint(0, n_blocks, (), generator=generator, device=device),
+    )
+
+
 def apply_domain(style: torch.Tensor, domain: torch.Tensor | float) -> torch.Tensor:
     """Interpolate between the zero "shoeprint style" and ``style`` by θ.
 

@@ -39,10 +39,15 @@ _DOUBLE_BLUR = (1 / 16, 5 / 16, 10 / 16, 10 / 16, 5 / 16, 1 / 16)
 def _taps(
     taps: tuple[float, ...], dim: int, channels: int, dtype: torch.dtype, device: torch.device
 ) -> torch.Tensor:
-    """Depthwise kernel [C, 1, k, 1] (dim 2, along H) or [C, 1, 1, k] (dim 3)."""
-    k = torch.tensor(taps, dtype=dtype, device=device)
-    shape = (1, 1, len(taps), 1) if dim == 2 else (1, 1, 1, len(taps))
-    return k.reshape(shape).expand(channels, 1, *shape[2:]).contiguous()
+    """Depthwise kernel [C, 1, k, 1] (dim 2, along H) or [C, 1, 1, k] (dim 3).
+
+    Built as a normal tensor even under ``torch.inference_mode`` (serving):
+    the cache hands the same tensor to training's autograd, which refuses
+    inference tensors."""
+    with torch.inference_mode(False):
+        k = torch.tensor(taps, dtype=dtype, device=device)
+        shape = (1, 1, len(taps), 1) if dim == 2 else (1, 1, 1, len(taps))
+        return k.reshape(shape).expand(channels, 1, *shape[2:]).contiguous()
 
 
 def _edge_pad(x: torch.Tensor, dim: int) -> torch.Tensor:
