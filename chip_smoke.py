@@ -1,5 +1,5 @@
 """Drive the PyTorch port on one NVIDIA GPU, end to end: the 1->N serving
-path and the discriminator phase of training.
+path, the discriminator phase of training and the fused training step.
 
     python3 chip_smoke.py
 
@@ -39,7 +39,25 @@ started together), then runs, in order:
    the same weights, batches and draws; the CPU's gradients on the card's
    inputs; and, on the CPU's inputs, the card's gradients (as configured,
    with cuDNN deterministic, without cuDNN, with TF32 on) and the CPU's
-   against a float64 pass on the CPU.
+   against a float64 pass on the CPU;
+10. the warp backward kernel against its plain version at the same
+   shapes, dtypes and antialias modes as phase 7, with a normal
+   cotangent, through the wrapper and through autograd, with the
+   kernel's, the plain version's, ``grid_sampler_2d_backward``'s
+   (antialias off, float32) and the bound's times;
+11. the fused training step (D phase, then G phase) at the bench config
+   with the lazy path term every 8th step: 3 warm-up and 16 timed steps,
+   with the launch counts per step (3 warp forwards, 1 warp backward, 30
+   instance norms), the checks that the seven G metrics are finite, that
+   the path loss is positive on path steps and 0 on the others, that the
+   generator, mapping and extractor moved and that the step counter
+   advanced; path and other steps timed apart, their peak memory, and
+   one of each under ``torch.profiler``;
+12. the card against the CPU: one float32 fused path step (TF32 off) at
+   256x256, batch 4, on the same weights, batches and draws: the G
+   metrics and the gradients of generator, mapping and extractor, and
+   both sides' gradients against a float64 pass of the G phase on the CPU
+   on the CPU's inputs (the card's on those inputs too).
 
 Any failed check raises, and the script exits non-zero. Before its last
 line it prints one JSON line ``{"kernels": [...]}``; its last line is
@@ -91,6 +109,7 @@ IN_SHAPES = sorted({site[:3] for site in ENCODE_SITES})
 # The TPU kernel it replaces, in the JAX package: its pl.pallas_call.
 IN_REPLACES = "ops/pallas/instance_norm.py:72"
 WARP_REPLACES = "ops/pallas/warp.py:177"
+WARP_BWD_REPLACES = "ops/pallas/warp.py:209"
 KERNEL_SOURCES = ("instance_norm", "warp")  # csrc/<name>.cu
 # The warp's plain version in float32: the JAX package's warp tolerance
 # (tests/test_pallas_kernels.py). bfloat16: one bf16 ulp of the output plus
@@ -150,6 +169,41 @@ D_LOSS_RTOL = 1e-4
 D_SCORE_ATOL = 1e-3
 D_GRAD_RTOL = 2e-3
 D_GRAD_F64_RTOL = 5e-4
+# The fused step (phase 11): the D phase's config with the lazy path term
+# every 8th step (the JAX package's bench default); 3 warm-up steps and
+# 16 timed, two whole intervals. Per step: 3 warp forwards (2 in D, 1 in
+# G), 1 warp backward, and 30 instance norms: 12 in D (9 + 3), 9 in the G
+# phase's 2B encode, 3 in D's scoring of the augmented translations and
+# 3 + 3 in the two extractor passes.
+G_INTERVAL = 8
+G_WARMUP, G_STEPS = 3, 16
+G_WARPS_PER_STEP, G_WARP_BWDS_PER_STEP, G_IN_PER_STEP = 3, 1, 30
+G_METRICS = ("total_gen_loss", "gan_loss", "reconstruction_loss", "identity_loss",
+             "kl_loss", "style_loss", "path_loss")
+# Card against CPU, one float32 fused path step with TF32 off (phase 12),
+# read against a float64 pass of the G phase on the CPU on the CPU's
+# inputs (batch 4: the float64 pass takes 101 s on the host). The float64
+# pass records the side of 0 each ReLU and LeakyReLU input took
+# (ops/activations.py); each float32 pass is then also run with that
+# pattern pinned, and counts the inputs whose own side differed. An input
+# within float32 rounding of 0 that lands on the other side, where the
+# derivative is 0 or 0.2 instead of 1, moves every gradient upstream of it
+# by up to ~1e-3. Readings on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md,
+# PR 4), of 4.27e8 activation inputs:
+# - G metrics: <= 2.4e-6 relative; limit 1e-4.
+# - flips against float64: card 244, CPU 94, card with TF32 on 115698.
+#   Limit: 3e-6 of the inputs (1281), 5.2x the card's count.
+# - gradients per leaf relative to its norm, kinks pinned, against
+#   float64 on the same inputs: card 3.7e-5, CPU 1.3e-5, card with TF32
+#   on 6.1e-3. Limit 2e-4: 5.4x the card's reading, 30x below TF32's.
+# - unpinned, the flips' reach: card 5.5e-3 and CPU 6.3e-3 against
+#   float64, 8.7e-3 against each other. Limits 1.5e-2 and 2e-2.
+G_CPU_BATCH = 4
+G_METRIC_RTOL = 1e-4
+G_GRAD_RTOL = 2e-2
+G_GRAD_F64_RTOL = 1.5e-2
+G_GRAD_PINNED_RTOL = 2e-4
+G_MAX_FLIP_SHARE = 3e-6
 
 
 def log(msg: str) -> None:
@@ -626,12 +680,13 @@ def phase_warp(torch) -> dict:
 # ---------------------------------------------------------------- phase 8
 
 
-def d_phase_config(precision: str, batch: int):
+def d_phase_config(precision: str, batch: int, path_interval: int = 1):
     from one_to_many_gan_torch.presets import tiny_config
 
     return tiny_config(
         (D_SIZE, D_SIZE), batch, min_latent=64, w_dim=6, n_resnet_blocks=7, buffer_size=8,
-        tpu={"precision": precision, "ada_pallas": True, "ada_antialias": True},
+        tpu={"precision": precision, "ada_pallas": True, "ada_antialias": True,
+             "path_interval": path_interval},
     )
 
 
@@ -696,7 +751,7 @@ def _to(tree, device):
     """Move every tensor of nested NamedTuples to ``device``."""
     if isinstance(tree, tuple):
         return type(tree)(*(_to(t, device) for t in tree))
-    return tree.to(device)
+    return None if tree is None else tree.to(device)
 
 
 @contextlib.contextmanager
@@ -854,6 +909,344 @@ def phase_d_card_vs_cpu(torch) -> dict:
             "cpu_s": cpu["seconds"], "float64_s": f64_s}
 
 
+# ---------------------------------------------------------------- phase 10
+
+
+def phase_warp_bwd(torch) -> dict:
+    from one_to_many_gan_torch.ops.cuda import warp, warp_bwd, warp_bwd_plain, warp_bwd_sum_bound
+
+    gen = torch.Generator("cuda").manual_seed(11)
+    flush = torch.zeros(128 * 2**20, dtype=torch.uint8, device="cuda")
+    cases = []
+    for b, h, w in WARP_SHAPES:
+        for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            for aa in (False, True):
+                x, sx, sy, wx, wy = _warp_inputs(torch, gen, b, h, w, dtype, aa)
+                dout = torch.randn((b, h, w), generator=gen, device="cuda").to(dtype)
+                coords = (sx, sy, wx, wy)
+                got = warp_bwd(dout, *coords, antialias=aa)
+                want = warp_bwd_plain(dout, *coords, antialias=aa)
+                # the card's autograd path: the forward kernel, then the
+                # backward kernel on the cotangent
+                xr = x.clone().requires_grad_(True)
+                out = warp(xr, *coords, antialias=aa)
+                check(out.grad_fn is not None, "the warp's output has no grad_fn on the card")
+                out.backward(dout)
+                torch.cuda.synchronize()
+                diff = (got.double() - want.double()).abs()
+                auto_diff = (xr.grad.double() - want.double()).abs()
+                err, auto_err = diff.max().item(), auto_diff.max().item()
+                excess = 0.0
+                if dtype == torch.bfloat16:
+                    # beyond one bf16 ulp, each pixel's error over its proven
+                    # bound on the kernel's float32 sums
+                    mag = torch.maximum(got.double().abs(), want.double().abs())
+                    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(2.0**-126))) - 7)
+                    bound = warp_bwd_sum_bound(dout, *coords, antialias=aa).clamp_min(1e-300)
+                    excess = max(((d - ulp).clamp_min(0) / bound).max().item()
+                                 for d in (diff, auto_diff))
+                fns = {
+                    "kernel_ms": lambda t, c=coords, a=aa: warp_bwd(t, *c, antialias=a),
+                    "plain_ms": lambda t, c=coords, a=aa: warp_bwd_plain(t, *c, antialias=a),
+                }
+                lib_err = None
+                if not aa and dtype == torch.float32:
+                    # grid_sample's input gradient, align_corners=True:
+                    # pixel = (g + 1) / 2 * (n - 1)
+                    grid = torch.stack([sx / (w - 1) * 2 - 1, sy / (h - 1) * 2 - 1], dim=-1)
+                    img = x[:, None]
+
+                    def lib(t, grid=grid, img=img):
+                        return torch.ops.aten.grid_sampler_2d_backward(
+                            t[:, None], img, grid, 0, 0, True, [True, False])[0][:, 0]
+
+                    fns["library_ms"] = lib
+                    lib_err = (lib(dout) - want).abs().max().item()
+                times = time_cold_ms(torch, fns, dout, flush)
+                px = b * h * w
+                esize = dout.element_size()
+                # the function's bytes: dout, sx, sy and the widths read once,
+                # dimg written once
+                nbytes = px * (2 * esize + 8) + 2 * b * 4
+                # the kernel's own traffic beside them: the float32
+                # accumulator zeroed, one read-modify-write by its atomics
+                # and, in bf16, re-read by the cast
+                scratch = px * (4 + 8 + (4 if dtype == torch.bfloat16 else 0))
+                taps = (_taps(torch, sx, wx, w, aa) * _taps(torch, sy, wy, h, aa)).sum().item()
+                ops_ms = 2 * taps / F32_FLOP_PER_S * 1e3
+                case = {
+                    "b": b, "h": h, "w": w, "dtype": dtype_name, "antialias": aa,
+                    "max_abs_err": err, "autograd_max_abs_err": auto_err,
+                    "bf16_excess_of_sum_bound": excess, "library_err": lib_err,
+                    "max_abs_dimg": want.abs().max().item(),
+                    "taps_per_pixel": taps / px, "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                    "with_scratch_bytes_ms": (nbytes + scratch) / HBM_BYTES_PER_S * 1e3,
+                    "ops_ms": ops_ms, **times, "library_ms": times.get("library_ms"),
+                }
+                case["bound_ms"] = max(case["bytes_ms"], ops_ms)
+                case["bound_by"] = "bytes" if case["bytes_ms"] >= ops_ms else "operations"
+                cases.append(case)
+                lib_txt = "library none" if lib_err is None else (
+                    f"grid_sampler_2d_backward {case['library_ms']:.4f} ms (err {lib_err:.3g})")
+                log(f"warp_bwd [{b},{h},{w}] {dtype_name:8s} aa={int(aa)}: max_abs_err {err:.3g} "
+                    f"(autograd {auto_err:.3g}; bf16 beyond one ulp {excess:.3f} of the sum bound; "
+                    f"max |dimg| {case['max_abs_dimg']:.3g}) kernel {case['kernel_ms']:.4f} ms "
+                    f"plain {case['plain_ms']:.4f} ms {lib_txt} bound {case['bound_ms']:.4f} ms "
+                    f"({case['bound_by']}; {case['with_scratch_bytes_ms']:.4f} ms with the "
+                    f"accumulator); {case['taps_per_pixel']:.1f} taps/pixel")
+                check(torch.isfinite(got).all().item(), f"warp_bwd output not finite: {case}")
+                if dtype == torch.float32:
+                    check(max(err, auto_err) <= WARP_TOL_F32,
+                          f"warp_bwd kernel disagrees with its plain version: {case}")
+                else:
+                    check(excess <= 1.0 and max(err, auto_err) <= WARP_TOL_BF16_ABS,
+                          f"bf16 warp_bwd kernel disagrees with its plain version: {case}")
+                lost = ((xr.grad == 0) & (want.abs() > 1e-3)).sum().item()
+                check(lost == 0, f"the card's gradient is 0 at {lost} pixels where the plain "
+                                 f"version's is not: {case}")
+                if lib_err is not None:
+                    # grid_sample re-derives each coordinate from its normalised
+                    # grid (~1e-4 px), times |dout| summed over a pixel's terms
+                    check(lib_err <= 1e-3 * case["max_abs_dimg"],
+                          f"grid_sampler_2d_backward is not the same function: {case}")
+                del x, dout, got, want, xr, out
+    del flush
+    torch.cuda.empty_cache()
+    log(f"phase 10 ok: {len(cases)} warp backward cases within tolerance")
+    return {"cases": cases}
+
+
+# ---------------------------------------------------------------- phase 11
+
+
+def _params_of(state) -> list:
+    return [p.detach().clone() for m in (state.generator, state.mapping, state.extractor)
+            for p in m.parameters()]
+
+
+def phase_fused_step(torch) -> dict:
+    from one_to_many_gan_torch import train
+    from one_to_many_gan_torch.core.train_step import make_train_step
+    from one_to_many_gan_torch.ops.cuda import fused_instance_norm, warp, warp_bwd
+
+    config = d_phase_config("bfloat16", D_BATCH, path_interval=G_INTERVAL)
+    models, state, gen = train.setup(config, seed=0, ada_p=D_ADA_P, device="cuda")
+    train_step = make_train_step(config, models)
+    before = _params_of(state)
+    counters = (warp, warp_bwd, fused_instance_norm)
+    for c in counters:
+        c.launches = 0
+    # the main path: fused steps through the entry points a trainer calls
+    log_, step_ms = [], {"path": [], "off": []}
+    peak = {"path": 0, "off": 0}
+    n = G_WARMUP + G_STEPS
+    for step in range(n):
+        kind = "path" if state.step % G_INTERVAL == 0 else "off"
+        c0 = [c.launches for c in counters]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, metrics = train.run_step(config, models, state, train_step, gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak[kind] = max(peak[kind], torch.cuda.max_memory_allocated())
+        counts = [c.launches - k for c, k in zip(counters, c0, strict=True)]
+        m = {k: v.item() for k, v in metrics.items()}
+        log_.append({**m, "kind": kind, "ms": ms, "launches": counts})
+        if step >= G_WARMUP:
+            step_ms[kind].append(ms)
+        check(counts == [G_WARPS_PER_STEP, G_WARP_BWDS_PER_STEP, G_IN_PER_STEP],
+              f"step {step}: {counts} warp, warp_bwd and IN launches (want "
+              f"{[G_WARPS_PER_STEP, G_WARP_BWDS_PER_STEP, G_IN_PER_STEP]})")
+        check(all(np.isfinite(m[k]) for k in G_METRICS + ("disc_loss",)),
+              f"step {step}: a loss is not finite: {m}")
+        check(m["path_loss"] > 0 if kind == "path" else m["path_loss"] == 0,
+              f"step {step} ({kind}): path_loss {m['path_loss']}")
+    launches = dict(zip(("warp_fwd", "warp_bwd", "instance_norm"),
+                        (c.launches for c in counters), strict=True))
+    check(state.step == n, f"step counter {state.step} after {n} steps")
+    moved = max((p.detach() - q).abs().max().item()
+                for p, q in zip(_params_of(state), before, strict=True))
+    check(all((p - q).abs().max().item() > 0 for p, q in zip(_params_of(state), before,
+                                                               strict=True)),
+          "a parameter tensor of the generator, mapping or extractor did not change")
+    all_ms = step_ms["path"] + step_ms["off"]
+    mean = statistics.fmean(all_ms)
+    med = {k: statistics.median(v) for k, v in step_ms.items()}
+    log(f"fused step ({D_SIZE}x{D_SIZE}, batch {D_BATCH}, bf16, path interval {G_INTERVAL}): "
+        f"median path step {med['path']:.2f} ms ({len(step_ms['path'])} steps), median other "
+        f"step {med['off']:.2f} ms ({len(step_ms['off'])}), mean {mean:.2f} ms over {G_STEPS} "
+        f"= {D_BATCH / mean * 1e3:.1f} images/s; peak memory {peak['path'] / 2**30:.2f} GiB "
+        f"(path) / {peak['off'] / 2**30:.2f} GiB (other)")
+    log(f"  launches on the main path over {n} steps: {launches}; total_gen_loss "
+        f"{log_[0]['total_gen_loss']:.4f} -> {log_[-1]['total_gen_loss']:.4f}; parameters moved "
+        f"by up to {moved:.3g}")
+
+    def at_step(k):
+        def fn():
+            state.step = k
+            train.run_step(config, models, state, train_step, gen)
+        return fn
+
+    profiles = {kind: profile_call(torch, at_step(k), f"fused {kind} step ({D_SIZE}x{D_SIZE}, "
+                                   f"batch {D_BATCH}, bf16)")
+                for kind, k in (("path", G_INTERVAL), ("off", G_INTERVAL + 1))}
+    log("phase 11 ok")
+    return {"step_ms": step_ms, "median_ms": med, "mean_ms": mean,
+            "images_per_s": D_BATCH / mean * 1e3, "peak_bytes": peak, "launches": launches,
+            "steps": n, "metrics": log_, "profiles": profiles, "max_abs_move": moved}
+
+
+# ---------------------------------------------------------------- phase 12
+
+
+def _g_grads(state) -> dict:
+    return {f"{name}.{n}": p.grad.double().cpu()
+            for name in ("generator", "mapping", "extractor")
+            for n, p in getattr(state, name).named_parameters()}
+
+
+def _g_zero_grad_leaf(name: str) -> bool:
+    """The biases of the convs an instance norm follows (the encoder's stem
+    and down convs, the extractor trunk's last three): gradient 0 in exact
+    arithmetic."""
+    return name.endswith("bias") and name.startswith(
+        ("generator.enc_stem", "generator.enc_down", "extractor.trunk.1",
+         "extractor.trunk.2", "extractor.trunk.3"))
+
+
+def _float64(torch, module):
+    """A float64 copy of ``module``: its parameters and its compute dtype."""
+    module = copy.deepcopy(module).double()
+    for sub in module.modules():
+        if hasattr(sub, "dtype"):
+            sub.dtype = torch.float64
+    return module
+
+
+def phase_g_card_vs_cpu(torch) -> dict:
+    from one_to_many_gan_torch.core import train_step
+    from one_to_many_gan_torch.core.state import Models, init_train_state
+    from one_to_many_gan_torch.ops import activations
+
+    config = d_phase_config("float32", G_CPU_BATCH, path_interval=G_INTERVAL)
+    cpu_gen = torch.Generator().manual_seed(5)
+    draws = train_step.draw_step(cpu_gen, config, Models(config, device="cpu"))
+    batches = train_step.Batches(*(train_step.synthetic_batch(
+        cpu_gen, G_CPU_BATCH, (D_SIZE, D_SIZE), 1) for _ in range(4)))
+    # One fused step, as make_train_step composes it, on each device; the
+    # state entering the G phase is kept for the passes below.
+    runs = {}
+    for device in ("cuda", "cpu"):
+        models = Models(config, device=device, seed=0)  # float32 on CUDA: TF32 off
+        state = init_train_state(config, models, seed=0)
+        state.ada = state.ada._replace(p=torch.tensor(D_ADA_P, device=device))
+        d_phase = train_step.make_d_phase(config, models)
+        g_phase = train_step.make_g_phase(config, models)
+        dev_draws = _to(draws, device)
+        t0 = time.perf_counter()
+        p_used = state.ada.p
+        state, _ = d_phase(state, batches.d_shoeprints, batches.d_shoemarks, dev_draws.d)
+        entering = {n: copy.deepcopy(getattr(state, n).state_dict())
+                    for n in ("generator", "mapping", "extractor", "discriminator")}
+        state, metrics = g_phase(state, batches, dev_draws.g, p_used)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        runs[device] = {"seconds": time.perf_counter() - t0, "state": state, "models": models,
+                        "metrics": {k: v.item() for k, v in metrics.items()},
+                        "grads": _g_grads(state), "entering": entering, "p_used": p_used}
+    check(not torch.backends.cudnn.allow_tf32, "TF32 is on for the float32 card run")
+    card, cpu = runs["cuda"], runs["cpu"]
+    check(card["metrics"]["path_loss"] > 0, "phase 12's step is not a path step")
+    metric_rel = {k: abs(card["metrics"][k] - cpu["metrics"][k]) / max(abs(cpu["metrics"][k]),
+                                                                     1e-30)
+                  for k in G_METRICS}
+    card_vs_cpu = _grad_rel(card["grads"], cpu["grads"])
+
+    # The float64 pass: the G phase (without its Adams) on the CPU, on the
+    # state that entered the CPU's G phase, in float64, recording the side
+    # each activation input took.
+    cpu_state = cpu["state"]
+    for n, sd in cpu["entering"].items():
+        getattr(cpu_state, n).load_state_dict(sd)
+    state64 = copy.copy(cpu_state)
+    for n in ("generator", "mapping", "extractor", "discriminator"):
+        setattr(state64, n, _float64(torch, getattr(cpu_state, n)))
+    g_loss = train_step.make_g_loss(config, cpu["models"])
+    t0 = time.perf_counter()
+    with activations.record() as kinks64:
+        g_loss(state64, batches, draws.g, cpu["p_used"], True)
+    f64_s = time.perf_counter() - t0
+    ref = _g_grads(state64)
+    n_inputs = sum(m.numel() for m in kinks64.masks)
+    vs_f64 = {"cpu": _grad_rel(cpu["grads"], ref)}
+    flips = {}
+    with activations.pin(kinks64.masks) as pinned:
+        g_loss(cpu_state, batches, draws.g, cpu["p_used"], True)
+    vs_f64["cpu, pinned"], flips["cpu"] = _grad_rel(_g_grads(cpu_state), ref), pinned.n_flips()
+    # the card on the CPU's inputs: its modules set to the state that
+    # entered the CPU's G phase (the CPU's discriminator after its update)
+    card_state = card["state"]
+    for n, sd in cpu["entering"].items():
+        getattr(card_state, n).load_state_dict(sd)
+    card_g_loss = train_step.make_g_loss(config, card["models"])
+    card_draws = _to(draws.g, "cuda")
+    card_g_loss(card_state, batches, card_draws, card["p_used"], True)
+    vs_f64["card"] = _grad_rel(_g_grads(card_state), ref)
+    with activations.pin(kinks64.masks) as pinned:
+        card_g_loss(card_state, batches, card_draws, card["p_used"], True)
+    vs_f64["card, pinned"], flips["card"] = _grad_rel(_g_grads(card_state), ref), pinned.n_flips()
+    # the same with TF32 on, for scale: TF32 keeps ~3 decimal digits
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        with activations.pin(kinks64.masks) as pinned:
+            card_g_loss(card_state, batches, card_draws, card["p_used"], True)
+        vs_f64["card, TF32 on, pinned"] = _grad_rel(_g_grads(card_state), ref)
+        flips["card, TF32 on"] = pinned.n_flips()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+    names = [n for n in ref if not _g_zero_grad_leaf(n)]
+    total = torch.sqrt(sum(g.square().sum() for g in cpu["grads"].values())).item()
+    worst = {label: max(rel[n] for n in names) for label, rel in
+             (("card vs CPU", card_vs_cpu), *((f"{k} vs float64", v) for k, v in vs_f64.items()))}
+    log(f"fused step card vs CPU ({D_SIZE}x{D_SIZE}, batch {G_CPU_BATCH}, float32, TF32 off, "
+        f"path step): CPU step {cpu['seconds']:.1f} s, float64 G pass {f64_s:.1f} s")
+    log("  G metrics, relative: " + ", ".join(f"{k} {v:.3g}" for k, v in metric_rel.items()))
+    log(f"  kink flips against float64, of {n_inputs} activation inputs: " + ", ".join(
+        f"{k} {v}" for k, v in flips.items()))
+    log("  gradient error per leaf relative to its norm, largest: " + "; ".join(
+        f"{k} {v:.3g}" for k, v in worst.items()))
+    for label, rel in (("card vs CPU", card_vs_cpu), *vs_f64.items()):
+        top = sorted(names, key=lambda n, r=rel: -r[n])[:4]
+        log(f"  {label:24s} " + ", ".join(f"{n} {rel[n]:.3g}" for n in top))
+    for k, v in metric_rel.items():
+        check(np.isfinite(card["metrics"][k]) and v <= G_METRIC_RTOL,
+              f"{k}: card {card['metrics'][k]} vs CPU {cpu['metrics'][k]}")
+    for label in ("cpu", "card"):
+        check(flips[label] <= G_MAX_FLIP_SHARE * n_inputs,
+              f"{label}: {flips[label]} of {n_inputs} activation inputs off float64's side")
+    for n in ref:
+        if _g_zero_grad_leaf(n):
+            worst_zero = max(card["grads"][n].norm().item(), cpu["grads"][n].norm().item())
+            check(worst_zero <= 1e-4 * total, f"{n}: gradient {worst_zero:.3g} is not ~0")
+            continue
+        check(card_vs_cpu[n] <= G_GRAD_RTOL,
+              f"{n}: card gradient off the CPU's by {card_vs_cpu[n]:.3g} of its norm")
+        for label in ("cpu", "card"):
+            check(vs_f64[label][n] <= G_GRAD_F64_RTOL,
+                  f"{n}: {label} gradient off float64 by {vs_f64[label][n]:.3g} of its norm")
+            pinned_rel = vs_f64[f"{label}, pinned"][n]
+            check(pinned_rel <= G_GRAD_PINNED_RTOL,
+                  f"{n}: {label} gradient, kinks pinned, off float64 by {pinned_rel:.3g}")
+    log("phase 12 ok")
+    return {"metrics_card": card["metrics"], "metrics_cpu": cpu["metrics"],
+            "metric_rel": metric_rel, "grad_rel_card_vs_cpu": card_vs_cpu,
+            "grad_rel_vs_float64": vs_f64, "worst": worst, "cpu_s": cpu["seconds"],
+            "float64_s": f64_s, "batch": G_CPU_BATCH, "kink_flips": flips,
+            "activation_inputs": n_inputs}
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -866,6 +1259,7 @@ def main() -> int:
     from one_to_many_gan_torch.config import load_config
     from one_to_many_gan_torch.ops.cuda import build
 
+    t_start = time.perf_counter()
     report = {"environment": phase_environment(torch, build)}
     report["kernels"] = phase_kernels(torch)
     config = load_config(CONFIG)
@@ -884,15 +1278,24 @@ def main() -> int:
     report["d_phase"] = phase_d_phase(torch)
     torch.cuda.empty_cache()
     report["d_card_vs_cpu"] = phase_d_card_vs_cpu(torch)
+    torch.cuda.empty_cache()
+    report["warp_bwd"] = phase_warp_bwd(torch)
+    report["fused_step"] = phase_fused_step(torch)
+    torch.cuda.empty_cache()
+    report["g_card_vs_cpu"] = phase_g_card_vs_cpu(torch)
 
+    fused = report["fused_step"]["launches"]
     enc = report["kernels"]["per_encode"]["float32_b1"]
     f32_cases = [k for k in report["kernels"]["cases"] if k["dtype"] == "float32"]
+    in_by_phase = {"serve (phase 3)": report["serve"]["launches"],
+                   "D phase (phase 8)": report["d_phase"]["in_launches"],
+                   "fused step (phase 11)": fused["instance_norm"]}
     kernels = [{
         "name": "instance_norm",
         "route": "cuda",
         "source": "one_to_many_gan_torch/csrc/instance_norm.cu",
         "replaces": IN_REPLACES,
-        "launches": report["serve"]["launches"] + report["d_phase"]["in_launches"],
+        "launches": sum(in_by_phase.values()),
         "max_abs_err": max(k["max_abs_err"] for k in f32_cases),
         "ms": enc["kernel_ms"],
         "plain_ms": enc["plain_ms"],
@@ -901,20 +1304,23 @@ def main() -> int:
         "library_ms": enc["library_ms"],
         "per": "the 9 instance norms of one encode at B=1, float32, cold L2",
         "per_d_step_bfloat16": report["kernels"]["per_d_step"]["bfloat16"],
-        "launches_by_phase": {"serve (phase 3)": report["serve"]["launches"],
-                              "D phase (phase 8)": report["d_phase"]["in_launches"]},
+        "launches_by_phase": in_by_phase,
         "checked_in": "phase 2",
     }]
-    d_case = next(c for c in report["warp"]["cases"] if (c["b"], c["h"], c["w"]) == WARP_SHAPES[0]
-                  and c["dtype"] == "bfloat16" and c["antialias"])
-    off_case = next(c for c in report["warp"]["cases"] if (c["b"], c["h"], c["w"]) ==
-                    WARP_SHAPES[0] and c["dtype"] == "float32" and not c["antialias"])
+
+    def warp_case(phase: str, dtype: str, aa: bool) -> dict:
+        return next(c for c in report[phase]["cases"] if (c["b"], c["h"], c["w"]) ==
+                    WARP_SHAPES[0] and c["dtype"] == dtype and c["antialias"] == aa)
+
+    d_case, off_case = warp_case("warp", "bfloat16", True), warp_case("warp", "float32", False)
+    fwd_by_phase = {"D phase (phase 8)": report["d_phase"]["warp_launches"],
+                    "fused step (phase 11)": fused["warp_fwd"]}
     kernels.append({
         "name": "warp_fwd",
         "route": "cuda",
         "source": "one_to_many_gan_torch/csrc/warp.cu",
         "replaces": WARP_REPLACES,
-        "launches": report["d_phase"]["warp_launches"],
+        "launches": sum(fwd_by_phase.values()),
         "max_abs_err": max(c["max_abs_err"] for c in report["warp"]["cases"]
                            if c["dtype"] == "float32"),
         "ms": d_case["kernel_ms"],
@@ -926,8 +1332,33 @@ def main() -> int:
                "no single PyTorch call computes the antialiased warp",
         "grid_sample_ms_antialias_off_f32": off_case["library_ms"],
         "kernel_ms_antialias_off_f32": off_case["kernel_ms"],
+        "launches_by_phase": fwd_by_phase,
         "checked_in": "phase 7",
     })
+    b_case, b_off = warp_case("warp_bwd", "bfloat16", True), warp_case("warp_bwd", "float32", False)
+    kernels.append({
+        "name": "warp_bwd",
+        "route": "cuda",
+        "source": "one_to_many_gan_torch/csrc/warp.cu",
+        "replaces": WARP_BWD_REPLACES,
+        "launches": fused["warp_bwd"],
+        "max_abs_err": max(c["max_abs_err"] for c in report["warp_bwd"]["cases"]
+                           if c["dtype"] == "float32"),
+        "ms": b_case["kernel_ms"],
+        "plain_ms": b_case["plain_ms"],
+        "bound_ms": b_case["bound_ms"],
+        "bound_by": b_case["bound_by"],
+        "library_ms": None,
+        "per": "one call at the fused step's [16,256,256], bfloat16, antialias on, cold L2; "
+               "no single PyTorch call computes the antialiased warp's gradient",
+        "with_accumulator_bound_ms": b_case["with_scratch_bytes_ms"],
+        "grid_sampler_2d_backward_ms_antialias_off_f32": b_off["library_ms"],
+        "kernel_ms_antialias_off_f32": b_off["kernel_ms"],
+        "launches_by_phase": {"fused step (phase 11)": fused["warp_bwd"]},
+        "checked_in": "phase 10",
+    })
+    report["wall_s"] = time.perf_counter() - t_start
+    log(f"chip_smoke wall time {report['wall_s']:.1f} s")
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(report, indent=1, default=str))
     print(json.dumps({"kernels": kernels}))

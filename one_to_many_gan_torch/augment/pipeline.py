@@ -13,12 +13,14 @@ packages the same draws, and training draws them from a
 ``torch.Generator`` with the same distributions (``draw_augment``).
 
 Every category is always on (the JAX training step's default). The warp
-runs through ``ops/cuda/warp.py``, the hand-written CUDA kernel that
-replaces the Pallas warp kernel; the port always takes that kernel's
-numerics (the JAX package's ``tpu.ada_pallas`` is a TPU choice between it
-and an XLA contraction that rounds differently in bfloat16). The
-antialiased warp widens the tent per image and per axis; the true 2x
-supersampled warp (``tpu.ada_supersample``) is not ported (ROADMAP.md).
+runs through ``ops/cuda/warp.py``, the hand-written CUDA kernels that
+replace the Pallas warp kernels (forward and image cotangent), so
+``augment`` is differentiable in the images, as the generator phase
+needs. The port always takes those kernels' numerics (the JAX package's
+``tpu.ada_pallas`` is a TPU choice between them and an XLA contraction
+that rounds differently in bfloat16). The antialiased warp widens the
+tent per image and per axis; the true 2x supersampled warp
+(``tpu.ada_supersample``) is not ported (ROADMAP.md).
 
 Images are NHWC at this module's functions, as in the JAX package.
 """
@@ -249,14 +251,19 @@ def tent_widths(
 
 def warp_images(images: torch.Tensor, g_inv: torch.Tensor, *, antialias: bool) -> torch.Tensor:
     """Affine warp of single-channel NHWC images, zero outside the frame,
-    through the warp kernel (``ops/cuda/warp.py``)."""
+    through the warp kernels (``ops/cuda/warp.py``), which take contiguous
+    images: a strided view (the G phase's translations are every third
+    image of one decode) is copied first. Differentiable in the images
+    only: the coordinates and widths are detached, as the JAX package
+    stops their gradient (they come from the draws)."""
     b, h, w, c = images.shape
     if c != 1:
         msg = f"the ADA warp takes single-channel images, got {c} channels"
         raise ValueError(msg)
-    sx, sy = source_coords(g_inv, h, w)
-    width_x, width_y = tent_widths(g_inv, antialias=antialias)
-    return warp(images[..., 0], sx, sy, width_x, width_y, antialias=antialias)[..., None]
+    sx, sy = source_coords(g_inv.detach(), h, w)
+    width_x, width_y = tent_widths(g_inv.detach(), antialias=antialias)
+    return warp(images[..., 0].contiguous(), sx, sy, width_x, width_y,
+                antialias=antialias)[..., None]
 
 
 def apply_color(images: torch.Tensor, cmat: torch.Tensor) -> torch.Tensor:

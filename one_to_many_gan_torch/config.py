@@ -4,8 +4,8 @@ Reads the same schema as the JAX package (``configs/default.toml``): the
 six reference sections plus the optional ``[tpu]`` section, whose
 defaults are filled in below. Of ``[tpu]`` the port reads ``precision``
 ("float32" or "bfloat16" activations) and, for training,
-``ada_antialias``; ``check_training_options`` refuses the training
-options it does not run yet. ``ada_pallas`` chooses between two TPU
+``ada_antialias`` and ``path_interval``; ``check_training_options``
+refuses the training options it does not run yet. ``ada_pallas`` chooses between two TPU
 implementations of the ADA warp; the port always computes the Pallas
 kernel's numerics, so it ignores the key. The other keys are validated
 so that one file configures both packages.
@@ -119,17 +119,20 @@ def n_downsamples(config: Config) -> int:
 
 
 # [tpu] training options the port does not run yet, with their off value.
-_NOT_PORTED = {"r1_gamma": 0.0, "ema_decay": 0.0, "ada_supersample": False}
+_NOT_PORTED = {
+    "r1_gamma": 0.0, "ema_decay": 0.0, "ada_supersample": False, "g_loss_split": False,
+}
 
 
 def check_training_options(config: Config) -> None:
     """Raise ``NotImplementedError`` for a training option the port does
-    not run yet: R1 (``r1_gamma > 0``), generator EMA (``ema_decay > 0``)
-    or the 2x supersampled ADA warp (``ada_supersample``)."""
+    not run yet: R1 (``r1_gamma > 0``), generator EMA (``ema_decay > 0``),
+    the 2x supersampled ADA warp (``ada_supersample``) or the generator
+    loss's two accumulated sub-backwards (``g_loss_split``)."""
     for key, off in _NOT_PORTED.items():
         if config["tpu"][key]:
             msg = (
                 f"tpu.{key} = {config['tpu'][key]!r} is not ported to PyTorch yet "
-                f"(see ROADMAP.md, queue 1); set it to {off!r}"
+                f"(see ROADMAP.md); set it to {off!r}"
             )
             raise NotImplementedError(msg)

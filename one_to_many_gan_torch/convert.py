@@ -1,14 +1,15 @@
 """The weight bridge: JAX parameter trees -> the port's modules.
 
 ``from_jax_params`` takes the generator, mapping-network and (optionally)
-discriminator variable trees as the JAX package writes them
-(``{"params": {...}}``, nested dicts of numpy arrays, e.g. from
-``export.load_inference_artifact``) and copies them into a ``Models``
-(serving) or a ``TrainState`` (training, which holds the discriminator).
-Conv kernels go HWIO -> OIHW, linear weights ``[in, out]`` -> ``[out,
-in]``. The leaf names are the ones the JAX ``Generator``,
-``MappingNetwork`` and ``Discriminator`` produce. Every shape is checked,
-and a missing or extra leaf raises.
+discriminator and style-extractor variable trees as the JAX package
+writes them (``{"params": {...}}``, nested dicts of numpy arrays, e.g.
+from ``export.load_inference_artifact``) and copies them into a
+``Models`` (serving) or a ``TrainState`` (training, which holds the
+discriminator and the extractor). Conv kernels go HWIO -> OIHW, linear
+weights ``[in, out]`` -> ``[out, in]``. The leaf names are the ones the
+JAX ``Generator``, ``MappingNetwork``, ``Discriminator`` and
+``StyleExtractor`` produce. Every shape is checked, and a missing or
+extra leaf raises.
 """
 
 from __future__ import annotations
@@ -74,6 +75,12 @@ def _discriminator_layers(disc) -> Iterator[tuple[str, nn.Module]]:
     yield f"EqualizedConv_{len(disc.trunk)}", disc.head
 
 
+def _extractor_layers(extractor) -> Iterator[tuple[str, nn.Module]]:
+    for i, conv in enumerate(extractor.trunk):
+        yield f"EqualizedConv_{i}", conv
+    yield "EqualizedLinear_0", extractor.head
+
+
 def jax_leaves(layers) -> Iterator[tuple[str, nn.Parameter, str]]:
     """(JAX leaf path, port parameter, layout) of every leaf of ``layers``
     (e.g. ``_discriminator_layers(state.discriminator)``)."""
@@ -111,14 +118,16 @@ def _load(layers, variables, what: str) -> None:
 
 
 def from_jax_params(
-    target: Models | TrainState, params_g, params_m, params_d=None
+    target: Models | TrainState, params_g, params_m, params_d=None, params_s=None
 ) -> Models | TrainState:
-    """Copy the JAX generator, mapping and (when given) discriminator
-    variables into ``target`` (in place; returned for chaining): a
-    ``Models`` for serving, or a ``TrainState``, the holder of the
-    discriminator."""
+    """Copy the JAX generator, mapping and (when given) discriminator and
+    style-extractor variables into ``target`` (in place; returned for
+    chaining): a ``Models`` for serving, or a ``TrainState``, the holder
+    of the discriminator and the extractor."""
     _load(_generator_layers(target.generator), params_g, "generator")
     _load(_mapping_layers(target.mapping), params_m, "mapping")
     if params_d is not None:
         _load(_discriminator_layers(target.discriminator), params_d, "discriminator")
+    if params_s is not None:
+        _load(_extractor_layers(target.extractor), params_s, "extractor")
     return target

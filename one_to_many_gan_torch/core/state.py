@@ -1,10 +1,10 @@
 """The models, built once from a config, and the training state.
 
 ``Models`` holds the generator and mapping network, which serving and
-training share. ``TrainState`` adds what only training needs, the
-discriminator first: it carries what the discriminator phase of training
-reads and writes. The style extractor and the generator-side optimizers
-come with the generator phase.
+training share, without gradients. ``TrainState`` adds what only
+training needs: the discriminator, the style extractor, the four Adams
+(discriminator, generator, mapping, extractor), the ADA state and the
+replay buffer, and it turns gradients on for the generator and mapping.
 """
 
 from __future__ import annotations
@@ -18,7 +18,12 @@ from one_to_many_gan_torch.augment.controller import AdaState, init_ada_state
 from one_to_many_gan_torch.config import Config
 from one_to_many_gan_torch.core.buffer import BufferState, init_buffer
 from one_to_many_gan_torch.device import compute_dtype, disable_tf32, select_device
-from one_to_many_gan_torch.models import Discriminator, Generator, MappingNetwork
+from one_to_many_gan_torch.models import (
+    Discriminator,
+    Generator,
+    MappingNetwork,
+    StyleExtractor,
+)
 
 
 class Models:
@@ -63,53 +68,77 @@ class Models:
 
 
 def make_optimizers(
-    config: Config, discriminator: nn.Module
+    config: Config, modules: dict[str, nn.Module]
 ) -> dict[str, torch.optim.Optimizer]:
-    """Adam for the discriminator, as ``optax.adam(lr, b1, b2, eps=1e-8)``:
-    torch's bias-corrected update ``lr/bc1 * m / (sqrt(v)/sqrt(bc2) + eps)``
-    is optax's ``lr * m_hat / (sqrt(v_hat) + eps)`` rearranged."""
+    """One Adam per network of ``modules`` (keys ``d``, ``g``, ``m``, ``s``:
+    discriminator, generator, mapping, extractor), as
+    ``optax.adam(lr, b1, b2, eps=1e-8)``: torch's bias-corrected update
+    ``lr/bc1 * m / (sqrt(v)/sqrt(bc2) + eps)`` is optax's
+    ``lr * m_hat / (sqrt(v_hat) + eps)`` rearranged. The mapping network
+    learns at ``mapping_network_learning_rate`` (100x lower in the shipped
+    configs), the others at ``learning_rate``."""
     opt = config["optimisation"]
+    lrs = {"m": opt["mapping_network_learning_rate"]}
     return {
-        "d": torch.optim.Adam(
-            discriminator.parameters(),
-            lr=opt["learning_rate"],
+        key: torch.optim.Adam(
+            module.parameters(),
+            lr=lrs.get(key, opt["learning_rate"]),
             betas=tuple(opt["adam_betas"]),
             eps=1e-8,
-        ),
+        )
+        for key, module in modules.items()
     }
 
 
 @dataclasses.dataclass
 class TrainState:
-    """What the discriminator phase reads and writes. The modules and the
-    optimizer are updated in place (as torch does); ``ada`` and
-    ``buffer`` are replaced by each phase."""
+    """What one training step reads and writes. The modules and the
+    optimizers are updated in place (as torch does); ``ada`` and
+    ``buffer`` are replaced by the discriminator phase, ``step`` counts
+    the generator phases."""
 
     step: int
     generator: Generator
     mapping: MappingNetwork
     discriminator: Discriminator
+    extractor: StyleExtractor
     opt_d: torch.optim.Optimizer
+    opt_g: torch.optim.Optimizer
+    opt_m: torch.optim.Optimizer
+    opt_s: torch.optim.Optimizer
     ada: AdaState
     buffer: BufferState
 
 
 def init_train_state(config: Config, models: Models, *, seed: int = 0) -> TrainState:
-    """The state of a fresh run around ``models``: a discriminator with
-    N(0, 1) weights from ``torch.manual_seed(seed)`` (forked RNG, as
-    ``Models``; in eval mode, on the models' device and in their compute
-    dtype), its Adam, ADA at p = 0 and an empty replay buffer."""
+    """The state of a fresh run around ``models``: a discriminator, then a
+    style extractor, with N(0, 1) weights from ``torch.manual_seed(seed)``
+    (forked RNG, as ``Models``; in eval mode, on the models' device and in
+    their compute dtype), the four Adams, ADA at p = 0 and an empty replay
+    buffer. Gradients are turned on for ``models``' generator and mapping
+    network, which the state trains."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         discriminator = Discriminator(models.channels, dtype=models.dtype)
-    discriminator.eval().to(models.device)
+        extractor = StyleExtractor(models.channels, models.w_dim, dtype=models.dtype)
+    for module in (discriminator, extractor):
+        module.eval().to(models.device)
+    for module in (models.generator, models.mapping):
+        module.requires_grad_(True)
+    opts = make_optimizers(config, {
+        "d": discriminator, "g": models.generator, "m": models.mapping, "s": extractor,
+    })
     h, w = models.image_size
     return TrainState(
         step=0,
         generator=models.generator,
         mapping=models.mapping,
         discriminator=discriminator,
-        opt_d=make_optimizers(config, discriminator)["d"],
+        extractor=extractor,
+        opt_d=opts["d"],
+        opt_g=opts["g"],
+        opt_m=opts["m"],
+        opt_s=opts["s"],
         ada=init_ada_state(models.device),
         buffer=init_buffer(
             config["training"]["image_buffer_size"], (h, w, models.channels), models.device

@@ -1,7 +1,7 @@
-"""Model families: generator, mapping network and discriminator."""
+"""Model families: generator, mapping network, discriminator and style extractor."""
 
 from one_to_many_gan_torch.models.blocks import ModulatedResnetBlock, ResnetBlock
-from one_to_many_gan_torch.models.discriminator import Discriminator
+from one_to_many_gan_torch.models.discriminator import Discriminator, StyleExtractor, Trunk
 from one_to_many_gan_torch.models.generator import Generator, generator_arithmetic
 from one_to_many_gan_torch.models.mapping import (
     MappingNetwork,
@@ -16,7 +16,9 @@ __all__ = [
     "MappingNetwork",
     "ModulatedResnetBlock",
     "ResnetBlock",
+    "StyleExtractor",
     "StyleRngs",
+    "Trunk",
     "apply_domain",
     "draw_style_rngs",
     "generator_arithmetic",

@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from one_to_many_gan_torch.ops import EqualizedConv, ModulatedConv, fused_instance_norm
+from one_to_many_gan_torch.ops.activations import relu
 
 
 class ResnetBlock(nn.Module):
@@ -39,6 +40,6 @@ class ModulatedResnetBlock(nn.Module):
         self.conv1 = ModulatedConv(dim, dim, w_dim, padding=1, pad_mode="reflect", dtype=dtype)
 
     def forward(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(self.conv0(x, w))
+        y = relu(self.conv0(x, w))
         y = self.conv1(y, w)
         return x + y

@@ -34,6 +34,7 @@ from one_to_many_gan_torch.ops import (
     fused_instance_norm,
     upsample2x,
 )
+from one_to_many_gan_torch.ops.activations import relu
 
 
 def generator_arithmetic(
@@ -101,7 +102,7 @@ class Generator(nn.Module):
             z = block(z, w[i])
             i += 1
         for conv in self.dec_up:
-            z = torch.relu(conv(upsample2x(z), w[i]))
+            z = relu(conv(upsample2x(z), w[i]))
             i += 1
         return torch.tanh(self.out_conv(z))
 
@@ -118,7 +119,7 @@ class Generator(nn.Module):
             z = conv(upsample2x(z), w[i])
             i += 1
             if i < n_total:
-                z = torch.relu(z)
+                z = relu(z)
             features.append(z)
         return features
 

@@ -11,7 +11,8 @@
 The draws are injected as tensors (``StyleRngs``): torch cannot
 reproduce ``jax.random`` streams, so tests hand both packages the same
 draws, and serving draws them from a ``torch.Generator``. All style math
-runs in float32. Style stacks are [n_blocks, B, w_dim].
+runs in float32 (float64 in a float64 copy). Style stacks are
+[n_blocks, B, w_dim].
 """
 
 from __future__ import annotations
@@ -19,10 +20,10 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from one_to_many_gan_torch.ops import EqualizedLinear, l2_normalize
+from one_to_many_gan_torch.ops.activations import leaky_relu, relu
 
 
 class StyleRngs(NamedTuple):
@@ -65,10 +66,10 @@ class MappingNetwork(nn.Module):
         )
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        x = l2_normalize(z.float(), dim=1)
+        x = l2_normalize(z.to(self.layers[0].dtype), dim=1)
         for i, layer in enumerate(self.layers):
             x = layer(x)
-            x = torch.relu(x) if i == len(self.layers) - 1 else F.leaky_relu(x, 0.2)
+            x = relu(x) if i == len(self.layers) - 1 else leaky_relu(x, 0.2)
         return x
 
     def style_vector(

@@ -8,6 +8,20 @@ from one_to_many_gan_torch.ops.cuda.instance_norm import (
     fused_instance_norm,
     instance_norm_plain,
 )
-from one_to_many_gan_torch.ops.cuda.warp import warp, warp_plain
+from one_to_many_gan_torch.ops.cuda.warp import (
+    warp,
+    warp_bwd,
+    warp_bwd_plain,
+    warp_bwd_sum_bound,
+    warp_plain,
+)
 
-__all__ = ["fused_instance_norm", "instance_norm_plain", "warp", "warp_plain"]
+__all__ = [
+    "fused_instance_norm",
+    "instance_norm_plain",
+    "warp",
+    "warp_bwd",
+    "warp_bwd_plain",
+    "warp_bwd_sum_bound",
+    "warp_plain",
+]

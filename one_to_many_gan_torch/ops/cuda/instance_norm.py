@@ -34,6 +34,7 @@ import ctypes
 
 import torch
 
+from one_to_many_gan_torch.ops import activations
 from one_to_many_gan_torch.ops.cuda import build
 from one_to_many_gan_torch.ops.norm import instance_norm
 
@@ -134,11 +135,14 @@ def fused_instance_norm(
 
     CPU tensor: the plain version. CUDA tensor: the kernel, which takes a
     contiguous, non-empty float32 or bfloat16 NCHW tensor; anything else
-    raises.
+    raises. While a kink pattern is recorded or pinned
+    (``ops/activations.py``), the ReLU runs there, after the norm.
     """
     if x.device.type not in ("cpu", "cuda"):
         msg = f"fused_instance_norm: unsupported device {x.device}"
         raise ValueError(msg)
+    if relu and activations.kinks_open():
+        return activations.relu(_InstanceNorm.apply(x, False, eps))
     return _InstanceNorm.apply(x, relu, eps)
 
 

@@ -1,24 +1,28 @@
-"""The ADA warp forward through the hand-written CUDA kernel.
+"""The ADA warp, forward and backward, through hand-written CUDA kernels.
 
-Replaces the JAX package's TPU kernel ``ops/pallas/warp.py``
-(``_warp_fwd_impl``; public ``warp_pallas``, body ``_fwd_kernel``).
-Source: ``csrc/warp.cu``, which reads only the taps in each tent's
-support where the TPU kernel contracts dense tent matrices.
+Replaces the JAX package's TPU kernels in ``ops/pallas/warp.py``: the
+forward ``_warp_fwd_impl`` (public ``warp_pallas``, body ``_fwd_kernel``)
+and the image cotangent ``_warp_bwd`` (body ``_bwd_kernel``). Source:
+``csrc/warp.cu``, which reads only the taps in each tent's support where
+the TPU kernels contract dense tent matrices.
 
-Bound: bytes. The least time is one read of the image, the two
+Bound: bytes. The forward's least time is one read of the image, the two
 coordinate planes and the widths, and one write of the output, at the
-card's memory rate; the kernel does 4 to 81 multiply-adds per pixel.
+card's memory rate; the backward's the same with the cotangent in place
+of the image. Both do 4 to 81 multiply-adds per pixel.
 
-``warp`` takes the plain version only for a tensor on the CPU. For a
-CUDA tensor it launches the kernel or raises. Either way it raises for
-images that require a gradient: the backward kernel has not been ported
-yet, and no autograd path may quietly run the plain version meanwhile.
-``warp.launches`` counts the kernel's launches.
+``warp`` is differentiable in the images only: coordinates and widths
+come from the augmentation's draws and get no gradient (the JAX package
+gives them zero cotangents). ``warp`` and ``warp_bwd`` take the plain
+versions only for tensors on the CPU; for CUDA tensors they launch the
+kernels or raise. ``warp.launches`` and ``warp_bwd.launches`` count the
+kernels' launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import warnings
 
 import torch
 
@@ -29,19 +33,19 @@ from one_to_many_gan_torch.ops.cuda import build
 AA_MAX_WIDTH = 4.0
 RADIUS = 2 * int(AA_MAX_WIDTH)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# Elements of the plain version's largest intermediate per row chunk.
+# Elements of the plain versions' largest intermediate per row chunk.
 _PLAIN_BUDGET = 2**24
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("warp")
-    fn = lib.otm_warp_fwd
-    fn.argtypes = [
-        *[ctypes.c_void_p] * 6,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    for fn, n_ptr in ((lib.otm_warp_fwd, 6), (lib.otm_warp_bwd, 7)):
+        fn.argtypes = [
+            *[ctypes.c_void_p] * n_ptr,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
     lib.otm_cuda_error_string.argtypes = [ctypes.c_int]
     lib.otm_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -63,6 +67,10 @@ def _tent(coords: torch.Tensor, n: int, width: torch.Tensor, antialias: bool) ->
     return k[..., r : r + n]
 
 
+def _row_chunk(b: int, h: int, w: int) -> int:
+    return max(1, min(h, _PLAIN_BUDGET // (b * w * (max(h, w) + 2 * RADIUS))))
+
+
 def warp_plain(
     images: torch.Tensor,
     sx: torch.Tensor,
@@ -72,15 +80,15 @@ def warp_plain(
     *,
     antialias: bool,
 ) -> torch.Tensor:
-    """The kernel's plain PyTorch version: the dense tent contraction, in
-    chunks of output rows. The weights are the Pallas kernel's (``wx``
-    rounded to the image dtype, ``wy`` float32); the sums run in float64
-    and round once to the image dtype, so the result does not depend on
-    the order in which a GEMM sums, and the kernel's float32 sums differ
-    from it by their own rounding alone."""
+    """The forward kernel's plain PyTorch version: the dense tent
+    contraction, in chunks of output rows. The weights are the Pallas
+    kernel's (``wx`` rounded to the image dtype, ``wy`` float32); the sums
+    run in float64 and round once to the image dtype, so the result does
+    not depend on the order in which a GEMM sums, and the kernel's float32
+    sums differ from it by their own rounding alone."""
     b, h, w = images.shape
     img = images.double()
-    chunk = max(1, min(h, _PLAIN_BUDGET // (b * w * (max(h, w) + 2 * RADIUS))))
+    chunk = _row_chunk(b, h, w)
     out = []
     for r0 in range(0, h, chunk):
         wx = _tent(sx[:, r0 : r0 + chunk], w, width_x, antialias)
@@ -88,6 +96,160 @@ def warp_plain(
         g = torch.einsum("brxp,byp->brxy", wx.to(images.dtype).double(), img)
         out.append((g * wy.double()).sum(dim=-1))
     return torch.cat(out, dim=1).to(images.dtype)
+
+
+def warp_bwd_plain(
+    dout: torch.Tensor,
+    sx: torch.Tensor,
+    sy: torch.Tensor,
+    width_x: torch.Tensor,
+    width_y: torch.Tensor,
+    *,
+    antialias: bool,
+) -> torch.Tensor:
+    """The backward kernel's plain PyTorch version: the image cotangent
+    ``dimg[b, y', x'] = sum_{y, x} wy(y, x; y') * dout[b, y, x] * wx(y, x; x')``,
+    the dense transposed contraction in chunks of output rows.
+
+    Rounding follows the Pallas ``_bwd_kernel``, not autograd of the
+    forward: ``wx`` stays float32 (the forward rounds it to the image
+    dtype), ``dout`` is cast to float32 and ``wy * dout`` is formed in
+    float32; the sums run in float64 and round once to ``dout``'s dtype.
+    A float64 ``dout`` (a reference, on the CPU) stays float64 throughout."""
+    b, h, w = dout.shape
+    d = dout.to(torch.promote_types(dout.dtype, torch.float32))
+    chunk = _row_chunk(b, h, w)
+    acc = torch.zeros((b, h, w), dtype=torch.float64, device=dout.device)
+    for r0 in range(0, h, chunk):
+        wx = _tent(sx[:, r0 : r0 + chunk], w, width_x, antialias)
+        wy = _tent(sy[:, r0 : r0 + chunk], h, width_y, antialias)
+        a = wy * d[:, r0 : r0 + chunk, :, None]
+        acc += torch.einsum("brxy,brxp->byp", a.double(), wx.double())
+    return acc.to(dout.dtype)
+
+
+def _check_args(fn: str, t: torch.Tensor, sx, sy, width_x, width_y) -> None:
+    """Raise unless the kernel takes these tensors: ``t`` contiguous
+    non-empty [B,H,W] float32 or bfloat16 on a CUDA device, coordinates
+    float32 [B,H,W] and widths float32 [B], contiguous, on its device."""
+    if t.dtype not in _DTYPE_CODES:
+        msg = f"{fn}: dtype {t.dtype} (float32 or bfloat16 only)"
+        raise TypeError(msg)
+    if t.dim() != 3 or t.numel() == 0:
+        msg = f"{fn}: expected non-empty [B,H,W], got {tuple(t.shape)}"
+        raise ValueError(msg)
+    b = t.shape[0]
+    for name, c, shape in (
+        ("sx", sx, t.shape), ("sy", sy, t.shape),
+        ("width_x", width_x, (b,)), ("width_y", width_y, (b,)),
+    ):
+        if c.dtype != torch.float32 or c.shape != shape or c.device != t.device:
+            msg = (f"{fn}: {name} must be float32 {tuple(shape)} on {t.device}, "
+                   f"got {c.dtype} {tuple(c.shape)} on {c.device}")
+            raise ValueError(msg)
+    if not all(c.is_contiguous() for c in (t, sx, sy, width_x, width_y)):
+        msg = f"{fn}: the tensor, coordinates and widths must be contiguous"
+        raise ValueError(msg)
+
+
+def _check_device(fn: str, t: torch.Tensor) -> None:
+    if t.device.type not in ("cpu", "cuda"):
+        msg = f"{fn}: unsupported device {t.device}"
+        raise ValueError(msg)
+
+
+def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        reason = lib.otm_cuda_error_string(err).decode()
+        msg = f"{what} kernel launch failed: CUDA error {err} ({reason})"
+        raise RuntimeError(msg)
+
+
+def _launch_fwd(images, sx, sy, width_x, width_y, antialias: bool) -> torch.Tensor:
+    _check_args("warp", images, sx, sy, width_x, width_y)
+    b, h, w = images.shape
+    out = torch.empty_like(images)
+    lib = _lib()
+    with torch.cuda.device(images.device):
+        stream = torch.cuda.current_stream(images.device).cuda_stream
+        err = lib.otm_warp_fwd(
+            images.data_ptr(), sx.data_ptr(), sy.data_ptr(), width_x.data_ptr(),
+            width_y.data_ptr(), out.data_ptr(), b, h, w,
+            _DTYPE_CODES[images.dtype], int(antialias), RADIUS, stream,
+        )
+    _raise_on(lib, err, "warp")
+    warp.launches += 1
+    return out
+
+
+def warp_bwd(
+    dout: torch.Tensor,
+    sx: torch.Tensor,
+    sy: torch.Tensor,
+    width_x: torch.Tensor,
+    width_y: torch.Tensor,
+    *,
+    antialias: bool,
+) -> torch.Tensor:
+    """The image cotangent of ``warp`` for the output cotangent ``dout``
+    ``[B,H,W]``, in ``dout``'s dtype.
+
+    CPU tensor: the plain version. CUDA tensor: the kernel, which takes a
+    contiguous float32 or bfloat16 ``dout`` and contiguous float32
+    coordinates and widths; anything else raises. The kernel adds its
+    terms with float32 atomics, whose order varies from run to run, so it
+    raises while ``torch.use_deterministic_algorithms(True)`` holds (and
+    warns in its ``warn_only`` mode), as PyTorch's ``grid_sample`` backward
+    does.
+    """
+    _check_device("warp_bwd", dout)
+    if dout.device.type == "cpu":
+        return warp_bwd_plain(dout, sx, sy, width_x, width_y, antialias=antialias)
+    _check_args("warp_bwd", dout, sx, sy, width_x, width_y)
+    if torch.are_deterministic_algorithms_enabled():
+        msg = ("warp_bwd: the CUDA kernel adds float32 terms with atomics in an order "
+               "that varies from run to run; it has no deterministic implementation")
+        if not torch.is_deterministic_algorithms_warn_only_enabled():
+            raise RuntimeError(msg)
+        warnings.warn(msg, stacklevel=2)
+    b, h, w = dout.shape
+    # The float32 accumulator the atomics add into; in float32 it is dimg.
+    acc = torch.empty(dout.shape, dtype=torch.float32, device=dout.device)
+    dimg = acc if dout.dtype == torch.float32 else torch.empty_like(dout)
+    lib = _lib()
+    with torch.cuda.device(dout.device):
+        stream = torch.cuda.current_stream(dout.device).cuda_stream
+        err = lib.otm_warp_bwd(
+            dout.data_ptr(), sx.data_ptr(), sy.data_ptr(), width_x.data_ptr(),
+            width_y.data_ptr(), acc.data_ptr(), dimg.data_ptr(), b, h, w,
+            _DTYPE_CODES[dout.dtype], int(antialias), RADIUS, stream,
+        )
+    _raise_on(lib, err, "warp_bwd")
+    warp_bwd.launches += 1
+    return dimg
+
+
+class _Warp(torch.autograd.Function):
+    """Forward: the forward kernel (CUDA) or its plain version (CPU).
+    Backward: ``warp_bwd`` on the contiguous cotangent (autograd may hand
+    over an expanded or strided one); no gradient for the coordinates and
+    widths."""
+
+    @staticmethod
+    def forward(ctx, images, sx, sy, width_x, width_y, antialias: bool) -> torch.Tensor:
+        if images.device.type == "cpu":
+            out = warp_plain(images, sx, sy, width_x, width_y, antialias=antialias)
+        else:
+            out = _launch_fwd(images, sx, sy, width_x, width_y, antialias)
+        ctx.antialias = antialias
+        ctx.save_for_backward(sx, sy, width_x, width_y)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout: torch.Tensor):
+        sx, sy, width_x, width_y = ctx.saved_tensors
+        dimg = warp_bwd(dout.contiguous(), sx, sy, width_x, width_y, antialias=ctx.antialias)
+        return dimg, None, None, None, None, None
 
 
 def warp(
@@ -102,53 +264,47 @@ def warp(
     """Sample single-channel images ``[B,H,W]`` at source positions
     ``sx, sy [B,H,W]`` (input pixel units, zero outside the frame) with
     separable tents of per-image widths ``width_x, width_y [B]`` in [1, 4].
+    Differentiable in ``images`` (through ``warp_bwd``) only.
 
     CPU tensor: the plain version. CUDA tensor: the kernel, which takes
     contiguous float32 or bfloat16 images and contiguous float32
     coordinates and widths; anything else raises.
     """
-    if images.requires_grad:
-        msg = "warp: images require a gradient, but the warp backward is not ported yet"
-        raise RuntimeError(msg)
-    if images.device.type == "cpu":
-        return warp_plain(images, sx, sy, width_x, width_y, antialias=antialias)
-    if images.device.type != "cuda":
-        msg = f"warp: unsupported device {images.device}"
-        raise ValueError(msg)
-    if images.dtype not in _DTYPE_CODES:
-        msg = f"warp: image dtype {images.dtype} (float32 or bfloat16 only)"
-        raise TypeError(msg)
-    if images.dim() != 3 or images.numel() == 0:
-        msg = f"warp: expected non-empty [B,H,W] images, got {tuple(images.shape)}"
-        raise ValueError(msg)
-    b = images.shape[0]
-    for name, t, shape in (
-        ("sx", sx, images.shape), ("sy", sy, images.shape),
-        ("width_x", width_x, (b,)), ("width_y", width_y, (b,)),
-    ):
-        if t.dtype != torch.float32 or t.shape != shape or t.device != images.device:
-            msg = (f"warp: {name} must be float32 {tuple(shape)} on {images.device}, "
-                   f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-            raise ValueError(msg)
-    if not all(t.is_contiguous() for t in (images, sx, sy, width_x, width_y)):
-        msg = "warp: images, coordinates and widths must be contiguous"
-        raise ValueError(msg)
-    _, h, w = images.shape
-    out = torch.empty_like(images)
-    lib = _lib()
-    with torch.cuda.device(images.device):
-        stream = torch.cuda.current_stream(images.device).cuda_stream
-        err = lib.otm_warp_fwd(
-            images.data_ptr(), sx.data_ptr(), sy.data_ptr(), width_x.data_ptr(),
-            width_y.data_ptr(), out.data_ptr(), b, h, w,
-            _DTYPE_CODES[images.dtype], int(antialias), RADIUS, stream,
-        )
-    if err != 0:
-        reason = lib.otm_cuda_error_string(err).decode()
-        msg = f"warp kernel launch failed: CUDA error {err} ({reason})"
-        raise RuntimeError(msg)
-    warp.launches += 1
-    return out
+    _check_device("warp", images)
+    return _Warp.apply(images, sx, sy, width_x, width_y, antialias)
 
 
 warp.launches = 0
+warp_bwd.launches = 0
+
+
+def warp_bwd_sum_bound(
+    dout: torch.Tensor,
+    sx: torch.Tensor,
+    sy: torch.Tensor,
+    width_x: torch.Tensor,
+    width_y: torch.Tensor,
+    *,
+    antialias: bool,
+) -> torch.Tensor:
+    """A bound [B,H,W] (float64) on how far the backward kernel's float32
+    sum may lie from the exact ``dimg``, proven for every order of its
+    atomics: ``(n + 2) * 2^-24 * s``, where ``n`` counts the pixel's terms
+    of nonzero weight and ``s`` is the sum of their magnitudes. Each of
+    the ``n - 1`` rounded adds errs by at most 2^-24 of a partial sum (at
+    most ``s``), and each term's two float32 products by 2^-24 of the term
+    (3 * 2^-24 * s for all of them, with room for second-order terms).
+    The tolerances of the kernel against ``warp_bwd_plain`` in bfloat16
+    rest on it: one bfloat16 ulp (the two roundings) plus this bound."""
+    b, h, w = dout.shape
+    d = dout.float().abs()
+    chunk = _row_chunk(b, h, w)
+    n = torch.zeros((b, h, w), dtype=torch.float64, device=dout.device)
+    s = torch.zeros_like(n)
+    for r0 in range(0, h, chunk):
+        wx = _tent(sx[:, r0 : r0 + chunk], w, width_x, antialias)
+        wy = _tent(sy[:, r0 : r0 + chunk], h, width_y, antialias)
+        dr = d[:, r0 : r0 + chunk, :, None]
+        s += torch.einsum("brxy,brxp->byp", (wy * dr).double(), wx.double())
+        n += torch.einsum("brxy,brxp->byp", ((wy > 0) & (dr > 0)).double(), (wx > 0).double())
+    return (n + 2) * 2.0**-24 * s

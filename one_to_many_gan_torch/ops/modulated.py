@@ -50,7 +50,7 @@ class ModulatedConv(nn.Module):
 
     def forward(self, x: torch.Tensor, w_style: torch.Tensor) -> torch.Tensor:
         """x: [B, in, H, W]; w_style: [B, w_dim] -> [B, out, H, W]."""
-        s = self.to_style(w_style.float())  # [B, in], float32
+        s = self.to_style(w_style)  # [B, in], float32 (float64 in a float64 copy)
         x = x.to(self.dtype) * s[:, :, None, None].to(self.dtype)
         w = self.weight.to(self.dtype) * self.c
         if self.pad_mode == "zero":
@@ -58,5 +58,5 @@ class ModulatedConv(nn.Module):
         else:
             y = F.conv2d(pad2d(x, self.padding, self.pad_mode), w)
         wsq = (self.weight * self.c32).square().sum(dim=(2, 3))  # [out, in]
-        d = torch.rsqrt(s.square() @ wsq.T + self.eps)  # [B, out], float32
+        d = torch.rsqrt(s.square() @ wsq.T + self.eps)  # [B, out], as s
         return y * d[:, :, None, None].to(self.dtype)

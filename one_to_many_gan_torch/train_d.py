@@ -9,8 +9,8 @@ then runs ``--steps`` D phases on uniform [-1, 1) batches and draws from
 starting at ``--ada-p``. Prints one JSON line per step: the metrics, the
 buffer's and the ADA window's counts, and the step's wall time (ms,
 synchronised on CUDA). Runs on ``cuda`` unless ``--device cpu``; raises
-without a GPU. The generator phase is not ported yet, so the generator
-stays as initialised.
+without a GPU. The generator stays as initialised: ``train.py`` runs the
+fused step, both phases.
 """
 
 from __future__ import annotations
@@ -21,22 +21,17 @@ import time
 
 import torch
 
-from one_to_many_gan_torch.augment import init_ada_state
+from one_to_many_gan_torch import train
 from one_to_many_gan_torch.config import Config, load_config
-from one_to_many_gan_torch.core.state import Models, TrainState, init_train_state
+from one_to_many_gan_torch.core.state import Models, TrainState
 from one_to_many_gan_torch.core.train_step import draw_d_phase, make_d_phase, synthetic_batch
 
 
 def setup(config: Config, *, seed: int = 0, ada_p: float = 0.0, device=None):
-    """-> (models, state, d_phase, generator): fresh weights from ``seed``,
-    the ADA probability set to ``ada_p``, a ``torch.Generator`` seeded
-    with ``seed`` on the models' device."""
-    models = Models(config, device=device, seed=seed)
-    state = init_train_state(config, models, seed=seed)
-    state.ada = init_ada_state(models.device, p=ada_p)
-    d_phase = make_d_phase(config, models)
-    generator = torch.Generator(models.device).manual_seed(seed)
-    return models, state, d_phase, generator
+    """-> (models, state, d_phase, generator): ``train.setup``'s, and the D
+    phase."""
+    models, state, generator = train.setup(config, seed=seed, ada_p=ada_p, device=device)
+    return models, state, make_d_phase(config, models), generator
 
 
 def run_step(config: Config, models: Models, state: TrainState, d_phase, generator):

@@ -216,11 +216,6 @@ def test_warp_plain_matches_pallas_bf16(shape, minify, antialias):
     assert (np.abs(got - want) <= ulp + 2.0**-19 * np.abs(x).max()).all()
 
 
-def test_warp_refuses_images_that_need_a_gradient():
-    x = torch.zeros((1, 8, 8), requires_grad=True)
-    c = torch.zeros((1, 8, 8))
-    with pytest.raises(RuntimeError, match="backward is not ported"):
-        port_warp_fn(x, c, c, torch.ones(1), torch.ones(1), antialias=True)
 
 
 # ------------------------------------------------------------------ augment
@@ -248,12 +243,57 @@ def test_augment_matches_jax_bf16():
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=0.05)
 
 
+@pytest.mark.parametrize("antialias", [False, True])
+def test_augment_gradient_matches_jax_f32(antialias):
+    """``augment`` is differentiable in the images: the gradient of
+    ``sum(sin(augment(x)))`` against ``jax.grad`` of the JAX package's
+    (Pallas warp, interpret mode), at the end-to-end tolerance 1e-4."""
+    x = np.random.default_rng(22).uniform(-1, 1, (4, 64, 64, 1)).astype(np.float32)
+    key = jax.random.key(23)
+    want = fast_jit(jax.grad(lambda z: jnp.sum(jnp.sin(
+        jax_aug.augment(z, 0.9, key, antialias=antialias, pallas=True)))))(jnp.asarray(x))
+    xt = _t(x).requires_grad_(True)
+    torch.sin(port_aug.augment(xt, 0.9, jax_augment_draws(key, 4), antialias=antialias)).sum(
+        ).backward()
+    assert xt.grad.abs().max().item() > 0
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want), rtol=0, atol=1e-4)
+
+
+def test_augment_gives_the_transform_no_gradient():
+    """Gradients reach the images only: the geometric matrix (and so the
+    coordinates and widths derived from it) gets none, as the JAX
+    package stops them."""
+    x = torch.from_numpy(np.random.default_rng(24).uniform(-1, 1, (2, 16, 16, 1))
+                         .astype(np.float32)).requires_grad_(True)
+    draws = port_aug.draw_augment(torch.Generator().manual_seed(2), 2, "cpu")
+    g_inv = port_aug.geometric_matrix(draws.geom, 16, 16, torch.tensor(0.9)).requires_grad_(True)
+    port_aug.warp_images(x, g_inv, antialias=True).sum().backward()
+    assert g_inv.grad is None
+    assert x.grad is not None and x.grad.abs().max().item() > 0
+
+
 def test_augment_at_p_zero_is_the_identity():
     """At p = 0 every transform is the identity: integer source positions,
     tents of width 1, unit colour gain."""
     x = torch.from_numpy(np.random.default_rng(11).uniform(-1, 1, (3, 16, 24, 1)).astype(np.float32))
     draws = port_aug.draw_augment(torch.Generator().manual_seed(1), 3, "cpu")
     torch.testing.assert_close(port_aug.augment(x, 0.0, draws), x, rtol=0, atol=1e-6)
+
+
+def test_warp_images_hands_the_kernel_contiguous_images(monkeypatch):
+    """The CUDA kernels refuse strided images; the G phase augments every
+    third image of one decode, a strided view."""
+    seen = []
+
+    def spy(images, *args, **kwargs):
+        seen.append(images.is_contiguous())
+        return port_warp_fn(images, *args, **kwargs)
+
+    monkeypatch.setattr(port_aug, "warp", spy)
+    x = torch.zeros((6, 1, 16, 16))[::3].permute(0, 2, 3, 1)  # every third image, NHWC
+    assert not x[..., 0].is_contiguous()
+    port_aug.warp_images(x, torch.eye(3).expand(2, 3, 3), antialias=True)
+    assert seen == [True]
 
 
 def test_warp_images_takes_single_channel_images_only():

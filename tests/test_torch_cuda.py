@@ -14,7 +14,10 @@ weights and form the same exact products; the plain version sums them in
 float64 and rounds once, the kernel sums in float32, which errs by at
 most (nx + ny) * 2^-24 * max|x| * 1.03 for nx, ny <= 12 taps per axis
 whose weights sum to at most 1.03: 25 * 2^-24 < 2^-19. That term is more
-than a bf16 ulp where the taps cancel to an output near 0. The instance
+than a bf16 ulp where the taps cancel to an output near 0. The warp's
+backward in float32 is held to the same 2e-6, and in bfloat16 to one
+bfloat16 ulp plus ``warp_bwd_sum_bound``, a proven bound on the error of
+the kernel's float32 atomic sums in any order. The instance
 norm's gradient on the card is held to the plain version's autograd
 gradient at 1e-4 relative to its largest entry in float32 (the two sum
 over the plane in different orders, and the closed form and autograd's
@@ -39,6 +42,9 @@ from one_to_many_gan_torch.ops.cuda import (
     fused_instance_norm,
     instance_norm_plain,
     warp,
+    warp_bwd,
+    warp_bwd_plain,
+    warp_bwd_sum_bound,
     warp_plain,
 )
 
@@ -186,7 +192,96 @@ def test_warp_raises_instead_of_falling_back(cuda):
         warp(x.transpose(1, 2), sx, sy, ones, ones, antialias=True)
     with pytest.raises(ValueError, match="sx must be float32"):
         warp(x, sx.double(), sy, ones, ones, antialias=True)
-    with pytest.raises(RuntimeError, match="backward is not ported"):
-        warp(x.requires_grad_(True), sx, sy, ones, ones, antialias=False)
     assert warp.launches == before
     assert not math.isnan(warp(x.detach(), sx, sy, ones, ones, antialias=True).sum().item())
+
+
+@pytest.mark.parametrize("antialias", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    ("shape", "minify"),
+    [((3, 32, 32), 1.0), ((2, 16, 24), 1.0), ((2, 64, 64), 2.7), ((2, 64, 64), 0.5),
+     ((4, 512, 256), 1.0)],
+)
+def test_warp_bwd_kernel_matches_plain(cuda, shape, minify, dtype, antialias):
+    """The image cotangent at minifying (2.7: wide tents, points off the
+    frame) and magnifying (0.5: many terms per pixel) scales."""
+    b, h, w = shape
+    sx, sy, g = _warp_inputs(cuda, b, h, w, minify=minify)
+    wx, wy = tent_widths(g, antialias=antialias)
+    dout = torch.randn(shape, generator=cuda, device="cuda").to(dtype)
+    before = warp_bwd.launches
+    got = warp_bwd(dout, sx, sy, wx, wy, antialias=antialias)
+    assert warp_bwd.launches == before + 1
+    want = warp_bwd_plain(dout, sx, sy, wx, wy, antialias=antialias)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == dout.shape
+    assert torch.isfinite(got).all() and got.abs().max().item() > 0
+    diff = (got.double() - want.double()).abs()
+    if dtype == torch.float32:
+        assert diff.max().item() <= 2e-6
+    else:
+        mag = torch.maximum(got.double().abs(), want.double().abs()).clamp_min(2.0**-126)
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        bound = warp_bwd_sum_bound(dout, sx, sy, wx, wy, antialias=antialias)
+        assert (diff <= ulp + bound).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_warp_autograd_on_the_card(cuda, dtype):
+    """``warp`` on images that require a gradient has a ``grad_fn`` on the
+    card; its backward makes the cotangent contiguous (the gradient of a
+    ``mean`` is an expanded tensor) and launches the backward kernel once,
+    with the kernel's result on the contiguous cotangent, nonzero where
+    the CPU's gradient is."""
+    b, h, w = 4, 64, 64
+    sx, sy, g = _warp_inputs(cuda, b, h, w)
+    wx, wy = tent_widths(g, antialias=True)
+    x = torch.randn((b, h, w), generator=cuda, device="cuda").to(dtype).requires_grad_(True)
+    out = warp(x, sx, sy, wx, wy, antialias=True)
+    assert out.grad_fn is not None
+    before = warp_bwd.launches
+    out.float().mean().backward()
+    assert warp_bwd.launches == before + 1
+    dout = torch.full(x.shape, 1.0 / x.numel(), device="cuda").to(dtype)
+    want = warp_bwd(dout, sx, sy, wx, wy, antialias=True)
+    cpu = warp_bwd_plain(dout.cpu(), sx.cpu(), sy.cpu(), wx.cpu(), wy.cpu(), antialias=True)
+    torch.cuda.synchronize()
+    tol = 2e-6 if dtype == torch.float32 else 0.05 / x.numel()
+    assert (x.grad.double() - want.double()).abs().max().item() <= tol
+    assert torch.equal(x.grad.cpu() != 0, cpu != 0)
+    assert (cpu != 0).any()
+
+
+def test_warp_bwd_refuses_deterministic_mode(cuda):
+    dout = torch.randn((1, 8, 8), generator=cuda, device="cuda")
+    c = torch.rand((1, 8, 8), generator=cuda, device="cuda") * 8
+    ones = torch.ones(1, device="cuda")
+    before = warp_bwd.launches
+    try:
+        torch.use_deterministic_algorithms(True)
+        with pytest.raises(RuntimeError, match="no deterministic implementation"):
+            warp_bwd(dout, c, c, ones, ones, antialias=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert warp_bwd.launches == before
+
+
+def test_warp_bwd_raises_instead_of_falling_back(cuda):
+    b, h, w = 2, 8, 8
+    dout = torch.randn((b, h, w), generator=cuda, device="cuda")
+    sx = torch.rand((b, h, w), generator=cuda, device="cuda") * w
+    sy = torch.rand((b, h, w), generator=cuda, device="cuda") * h
+    ones = torch.ones(b, device="cuda")
+    before = warp_bwd.launches
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        warp_bwd(dout.half(), sx, sy, ones, ones, antialias=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        warp_bwd(dout.transpose(1, 2), sx, sy, ones, ones, antialias=True)
+    with pytest.raises(ValueError, match=r"expected non-empty \[B,H,W\]"):
+        warp_bwd(dout[None], sx, sy, ones, ones, antialias=True)
+    with pytest.raises(ValueError, match="sy must be float32"):
+        warp_bwd(dout, sx, sy.cpu(), ones, ones, antialias=True)
+    with pytest.raises(ValueError, match="width_x must be float32"):
+        warp_bwd(dout, sx, sy, ones[:1], ones, antialias=True)
+    assert warp_bwd.launches == before

@@ -256,7 +256,7 @@ def test_adam_matches_optax_over_three_steps():
         torch.nn.Parameter(torch.randn(shape, generator=torch.Generator().manual_seed(i)))
         for i, shape in enumerate([(4, 4, 3, 8), (8,), (5, 7)])
     )
-    opt = port_optimizers(pcfg, module)["d"]
+    opt = port_optimizers(pcfg, {"d": module})["d"]
     params = list(module)
     jparams = [jnp.asarray(p.detach().numpy().copy()) for p in params]  # no shared memory
     tx = jax_optimizers(jcfg)["d"]
