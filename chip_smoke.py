@@ -11,9 +11,12 @@ started together), then runs, in order:
 1. environment: the card's name and power limit, torch and CUDA
    versions, the kernel build time;
 2. the instance-norm kernel against its plain PyTorch version at the
-   serving shapes and at the 12 shapes of one D phase (phase 8), float32
-   and bfloat16, with the kernel's, the plain version's, the library
-   call's and the memory bound's times;
+   serving shapes, at the 12 sites of one D phase (phase 8) and at the
+   30 of one fused step (phase 11), float32 and bfloat16, with the
+   kernel's plan, a second launch that must be bitwise equal, the
+   kernel's, the plain version's, the library call's and the memory
+   bound's times, and their sums per encode, per D step and per fused
+   step;
 3. the HTTP server of ``configs/default.toml`` at full width (512x256,
    float32, fresh weights from seed 0): ``/generate`` at n = 8, 32, 64,
    zip and npy, a concurrent burst, ``/healthz`` and ``/stats``, with the
@@ -138,16 +141,26 @@ D_WARPS_PER_STEP = 2
 # The instance norms of one D phase, (B, C, H, W, relu): the generator's
 # encode at B = 16 (its 9 sites at 256x256) and the discriminator's trunk
 # on the packed batch of 32 (no ReLU: a LeakyReLU follows). The trunk's
-# planes (126^2, 62^2, 30^2) are no multiple of 8, so in bfloat16 the
-# kernel takes its scalar path there.
+# planes (126^2, 62^2, 30^2) are no multiple of 8 elements, so in
+# bfloat16 a plane starts mid-vector: the kernel's bulk copies take the
+# plane's range rounded out to 16 bytes.
+_ENCODE_256 = ([(64, 256, 256, True), (128, 256, 256, True), (256, 128, 128, True)]
+               + [(256, 64, 64, True), (256, 64, 64, False)] * 3)
+_TRUNK = [(128, 126, 126, False), (256, 62, 62, False), (512, 30, 30, False)]
 D_IN_SITES = (
-    [(D_BATCH, c, h, w, relu) for c, h, w, relu in
-     [(64, 256, 256, True), (128, 256, 256, True), (256, 128, 128, True)]
-     + [(256, 64, 64, True), (256, 64, 64, False)] * 3]
-    + [(2 * D_BATCH, c, h, w, False) for c, h, w in
-       [(128, 126, 126), (256, 62, 62), (512, 30, 30)]]
+    [(D_BATCH, *site) for site in _ENCODE_256] + [(2 * D_BATCH, *site) for site in _TRUNK]
 )
 D_IN_PER_STEP = len(D_IN_SITES)  # 12
+# The instance norms of one fused step (core/train_step.py): the D phase's
+# 12; make_g_loss's gen.encode of the packed prints and marks, 9 sites at
+# 2B = 32; and three trunk passes at B = 16: the extractor on the marks,
+# the discriminator on the augmented translations and the extractor on
+# the translations (the style cycle). The path term's gen.extract takes
+# latents and runs no instance norm.
+FUSED_IN_SITES = (
+    D_IN_SITES + [(2 * D_BATCH, *site) for site in _ENCODE_256]
+    + [(D_BATCH, *site) for site in _TRUNK] * 3
+)
 # Card against CPU, one float32 D phase with TF32 off (phase 9). Readings
 # on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, PR 3). cuDNN and oneDNN
 # pick different algorithms and summation orders through the generator,
@@ -273,12 +286,15 @@ def phase_kernels(torch) -> dict:
     import torch.nn.functional as F
 
     from one_to_many_gan_torch.ops.cuda import fused_instance_norm, instance_norm_plain
+    from one_to_many_gan_torch.ops.cuda.instance_norm import plan
 
+    check(len(FUSED_IN_SITES) == G_IN_PER_STEP,
+          f"{len(FUSED_IN_SITES)} fused-step IN sites, phase 11 counts {G_IN_PER_STEP}")
     gen = torch.Generator("cuda").manual_seed(0)
     flush = torch.zeros(128 * 2**20, dtype=torch.uint8, device="cuda")
     serve_sites = [(b, c, h, w, relu) for b in (1, 4) for c, h, w in IN_SHAPES
                    for relu in (False, True)]
-    sites = serve_sites + sorted(set(D_IN_SITES) - set(serve_sites))
+    sites = serve_sites + sorted(set(FUSED_IN_SITES) - set(serve_sites))
     cases = []
     for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for b, c, h, w, relu in sites:
@@ -286,13 +302,16 @@ def phase_kernels(torch) -> dict:
             x = x.to(dtype)
             nbytes = 2 * x.numel() * x.element_size()
             got = fused_instance_norm(x, relu=relu)
+            again = fused_instance_norm(x, relu=relu)
             want = instance_norm_plain(x, relu=relu)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             tol = IN_TOL[dtype_name]
+            layout = plan(b * c, h * w, dtype)
             case = {
                 "dtype": dtype_name, "b": b, "c": c, "h": h, "w": w, "relu": relu,
-                "max_abs_err": err, "tol": tol,
+                "plan": layout.__dict__, "max_abs_err": err, "tol": tol,
+                "repeat_bitwise_equal": torch.equal(got, again),
                 **time_cold_ms(torch, {
                     "kernel_ms": lambda t, r=relu: fused_instance_norm(t, relu=r),
                     "plain_ms": lambda t, r=relu: instance_norm_plain(t, relu=r),
@@ -300,13 +319,18 @@ def phase_kernels(torch) -> dict:
                 }, x, flush),
                 "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
             }
+            case["over_library"] = case["kernel_ms"] / case["library_ms"]
+            case["over_bound"] = case["kernel_ms"] / case["bound_ms"]
             cases.append(case)
-            log(f"IN {dtype_name:8s} B={b} [{c},{h},{w}] relu={int(relu)}: "
+            log(f"IN {dtype_name:8s} B={b} [{c},{h},{w}] relu={int(relu)} "
+                f"{layout.variant}/{layout.planes_per_block}/{layout.cluster}: "
                 f"max_abs_err {err:.3g} (tol {tol}) kernel {case['kernel_ms']:.4f} ms "
                 f"plain {case['plain_ms']:.4f} ms library {case['library_ms']:.4f} ms "
-                f"bound {case['bound_ms']:.4f} ms")
+                f"bound {case['bound_ms']:.4f} ms; kernel/library {case['over_library']:.2f} "
+                f"kernel/bound {case['over_bound']:.2f}")
             check(err <= tol, f"IN kernel disagrees with its plain version: {case}")
-            del x, got, want
+            check(case["repeat_bitwise_equal"], f"two IN launches differ: {case}")
+            del x, got, again, want
     del flush
     torch.cuda.empty_cache()
     keys = ("kernel_ms", "plain_ms", "library_ms", "bound_ms")
@@ -315,6 +339,7 @@ def phase_kernels(torch) -> dict:
         table = {(k["b"], k["c"], k["h"], k["w"], k["relu"]): k for k in cases
                  if k["dtype"] == dtype_name}
         sums = {key: sum(table[site][key] for site in sites) for key in keys}
+        sums["over_bound"] = sums["kernel_ms"] / sums["bound_ms"]
         log(f"IN per {label} ({dtype_name}, {len(sites)} sites): " + ", ".join(
             f"{k} {v:.4f}" for k, v in sums.items()))
         return sums
@@ -324,8 +349,14 @@ def phase_kernels(torch) -> dict:
         for dtype_name in IN_TOL for b in (1, 4)}
     d_step = {dtype_name: per_sites(dtype_name, D_IN_SITES, "D step")
               for dtype_name in IN_TOL}
-    log(f"phase 2 ok: {len(cases)} kernel cases within tolerance")
-    return {"cases": cases, "per_encode": encode, "per_d_step": d_step}
+    fused = {dtype_name: per_sites(dtype_name, FUSED_IN_SITES, "fused step")
+             for dtype_name in IN_TOL}
+    slower = [{k: c[k] for k in ("dtype", "b", "c", "h", "w", "relu", "over_library")}
+              for c in cases if c["over_library"] > 1]
+    log(f"IN sites slower than F.instance_norm: {len(slower)} of {len(cases)} {slower}")
+    log(f"phase 2 ok: {len(cases)} kernel cases within tolerance, repeats bitwise equal")
+    return {"cases": cases, "per_encode": encode, "per_d_step": d_step,
+            "per_fused_step": fused, "slower_than_library": slower}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1304,6 +1335,8 @@ def main() -> int:
         "library_ms": enc["library_ms"],
         "per": "the 9 instance norms of one encode at B=1, float32, cold L2",
         "per_d_step_bfloat16": report["kernels"]["per_d_step"]["bfloat16"],
+        "per_fused_step_bfloat16": report["kernels"]["per_fused_step"]["bfloat16"],
+        "sites_slower_than_library": len(report["kernels"]["slower_than_library"]),
         "launches_by_phase": in_by_phase,
         "checked_in": "phase 2",
     }]

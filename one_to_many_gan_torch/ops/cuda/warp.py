@@ -9,7 +9,10 @@ the TPU kernels contract dense tent matrices.
 Bound: bytes. The forward's least time is one read of the image, the two
 coordinate planes and the widths, and one write of the output, at the
 card's memory rate; the backward's the same with the cotangent in place
-of the image. Both do 4 to 81 multiply-adds per pixel.
+of the image. Both do 4 to 81 multiply-adds per pixel, one thread per
+pixel. Every block of the kernels lies in one image, reads its widths
+once and runs a fully unrolled loop of ``tap_count`` taps per axis (the
+longer axis's) from ``first_tap(c, width)``, each weight computed once.
 
 ``warp`` is differentiable in the images only: coordinates and widths
 come from the augmentation's draws and get no gradient (the JAX package
@@ -32,6 +35,8 @@ from one_to_many_gan_torch.ops.cuda import build
 # the normaliser runs over the extended tap range [-RADIUS, n + RADIUS).
 AA_MAX_WIDTH = 4.0
 RADIUS = 2 * int(AA_MAX_WIDTH)
+# Fewest antialias taps per axis the kernels' loops run (widths <= 1).
+AA_MIN_TAPS = 3
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Elements of the plain versions' largest intermediate per row chunk.
 _PLAIN_BUDGET = 2**24
@@ -51,20 +56,43 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def tap_count(width: torch.Tensor) -> torch.Tensor:
+    """Taps per axis the kernels' unrolled loops visit for antialias tents
+    of float32 ``width``: ``ceil(2 width) + 1``, at least ``AA_MIN_TAPS``;
+    0 where the width is above ``AA_MAX_WIDTH``, not positive or NaN (the
+    kernels write NaN there). The kernels' ``tap_count``."""
+    n = (torch.ceil(2.0 * width.float()) + 1).clamp_min(AA_MIN_TAPS).to(torch.int64)
+    ok = (width > 0) & (width <= AA_MAX_WIDTH)
+    return torch.where(ok, n, torch.zeros_like(n))
+
+
+def first_tap(coords: torch.Tensor, width: torch.Tensor) -> torch.Tensor:
+    """The first tap ``floor(fl32(c - width))`` of the kernels' loops for
+    coordinates ``c`` and widths broadcast against them."""
+    return torch.floor(coords.float() - width.float()).to(torch.int64)
+
+
+def _tent_k(coords: torch.Tensor, n: int, width: torch.Tensor) -> torch.Tensor:
+    """[B, R, W, n + 2 RADIUS] antialias tents ``relu(1 - |(c - i) / width|)``
+    of ``coords`` [B, R, W] at the taps ``i`` of the extended range
+    [-RADIUS, n + RADIUS), before normalisation."""
+    idx = torch.arange(-RADIUS, n + RADIUS, dtype=torch.float32, device=coords.device)
+    return torch.relu(1.0 - ((coords[..., None] - idx) / width[:, None, None, None]).abs())
+
+
 def _tent(coords: torch.Tensor, n: int, width: torch.Tensor, antialias: bool) -> torch.Tensor:
     """[B, R, W, n] tent weights of ``coords`` [B, R, W] over the taps of
     [0, n), extended-range normalised when antialiasing (the Pallas
     kernel's ``_tent``)."""
-    r = RADIUS if antialias else 0
-    idx = torch.arange(-r, n + r, dtype=torch.float32, device=coords.device)
     if not antialias:
+        idx = torch.arange(n, dtype=torch.float32, device=coords.device)
         return torch.relu(1.0 - (coords[..., None] - idx).abs())
-    k = torch.relu(1.0 - ((coords[..., None] - idx) / width[:, None, None, None]).abs())
+    k = _tent_k(coords, n, width)
     # Every nonzero k is a multiple of 2^-24 in (0, 1]: their sum is exact
     # in float64, so it rounds once to the kernel's float32 normaliser.
     norm = k.double().sum(dim=-1, keepdim=True).float()
     k = k / norm.clamp_min(1e-8)
-    return k[..., r : r + n]
+    return k[..., RADIUS : RADIUS + n]
 
 
 def _row_chunk(b: int, h: int, w: int) -> int:

@@ -1,0 +1,220 @@
+"""Sweep the design choices of the port's two redesigned CUDA kernels on one
+GPU, each alternative timed against the others in one run, cold L2.
+
+    python3 scripts/sweep_torch_kernels.py in-plans
+    python3 scripts/sweep_torch_kernels.py warp-variants
+
+``in-plans``: the instance norm at the serving, D-step and fused-step sites
+under every block layout the kernel's entry takes (planes per block,
+cluster size, threads), beside ``F.instance_norm`` and the plan that
+``ops/cuda/instance_norm.py::plan`` picks; every layout is first held to the
+plain version.
+
+``warp-variants``: copies of ``csrc/warp.cu`` with one choice changed each
+(registers uncapped, 256-thread blocks, 4 pixels per thread, IEEE divisions
+in place of the corrected reciprocal), built in parallel with the port's
+nvcc flags and timed against the source as it is; every variant's output is
+held bitwise to the source's. Builds go to ``build/sweep/``; results to
+``chiprun_out/sweep_<what>.json``. Needs a CUDA card and nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+
+OUT = ROOT / "chiprun_out"
+BUILD = ROOT / "build" / "sweep"
+IN_SITES = [  # (B, C, H, W, dtype name): one of each plane size on the paths
+    (1, 64, 512, 256, "float32"), (1, 128, 512, 256, "float32"), (1, 256, 256, 128, "float32"),
+    (1, 256, 128, 64, "float32"), (4, 256, 128, 64, "float32"), (1, 64, 512, 256, "bfloat16"),
+    (1, 256, 256, 128, "bfloat16"), (1, 256, 128, 64, "bfloat16"), (16, 64, 256, 256, "bfloat16"),
+    (16, 256, 128, 128, "bfloat16"), (16, 256, 64, 64, "bfloat16"), (32, 128, 126, 126, "bfloat16"),
+    (32, 256, 62, 62, "bfloat16"), (32, 512, 30, 30, "bfloat16"), (16, 512, 30, 30, "bfloat16"),
+]
+WARP_CASES = [((16, 256, 256), "bfloat16", True), ((16, 256, 256), "float32", True),
+              ((16, 256, 256), "float32", False), ((4, 512, 256), "bfloat16", True),
+              ((4, 512, 256), "float32", False)]
+
+
+def in_plans(torch) -> list:
+    import torch.nn.functional as F
+
+    from one_to_many_gan_torch.ops.cuda import instance_norm as m
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    flush = torch.zeros(128 * 2**20, dtype=torch.uint8, device="cuda")
+    results = []
+    for b, c, h, w, dtype_name in IN_SITES:
+        dtype = getattr(torch, dtype_name)
+        x = (torch.randn((b, c, h, w), generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+        planes, hw, esize = b * c, h * w, x.element_size()
+        layouts = {"plan": m.plan(planes, hw, dtype)}
+        for ppb in (1, 2, 4, 8):
+            for threads in (128, 256, 512):
+                smem = m._range_smem(ppb * hw, esize)
+                if threads // ppb >= 32 and smem <= m.MAX_DYNAMIC_SMEM:
+                    layouts[f"planes{ppb}_t{threads}"] = m.Plan(
+                        "packed" if ppb > 1 else "resident", ppb, 1, threads, smem,
+                        -(-planes // ppb))
+        for cluster in (2, 4, 8):
+            for threads in (256, 512):
+                smem = m._range_smem(-(-hw // cluster), esize)
+                if smem <= m.MAX_DYNAMIC_SMEM:
+                    layouts[f"cluster{cluster}_t{threads}"] = m.Plan(
+                        "cluster", 1, cluster, threads, smem, planes * cluster)
+        want = m.instance_norm_plain(x)
+        for name, layout in layouts.items():
+            err = (m._launch(x, False, 1e-5, layout).float() - want.float()).abs().max().item()
+            cs.check(err <= cs.IN_TOL[dtype_name], f"IN layout {name} off by {err}")
+        fns = {name: (lambda t, lay=layout: m._launch(t, False, 1e-5, lay))
+               for name, layout in layouts.items()}
+        fns["F.instance_norm"] = F.instance_norm
+        times = cs.time_cold_ms(torch, fns, x, flush, reps=15)
+        bound = 2 * x.numel() * esize / cs.HBM_BYTES_PER_S * 1e3
+        chosen = layouts["plan"]
+        cs.log(f"IN B={b} [{c},{h},{w}] {dtype_name}: bound {bound:.4f} ms, plan "
+               f"{chosen.variant}/{chosen.planes_per_block}/{chosen.cluster}/{chosen.threads} "
+               + " ".join(f"{k}={v:.4f}" for k, v in sorted(times.items(), key=lambda kv: kv[1])))
+        results.append({"site": [b, c, h, w, dtype_name], "bound_ms": bound, "ms": times,
+                        "plan": chosen.__dict__})
+        del x, want
+    return results
+
+
+def _warp_sources(src: str) -> dict:
+    """The source and one copy per alternative, each differing in one choice."""
+
+    def swap(text: str, old: str, new: str) -> str:
+        cs.check(old in text, f"warp variant: {old[:60]!r} not in the source")
+        return text.replace(old, new)
+
+    cap = "__launch_bounds__(kFwdThreads, kFwdBlocksPerSM)"
+    consts = "constexpr int kFwdThreads = 128;\nconstexpr int kFwdBlocksPerSM = 16;"
+    head = "  const int p = blockIdx.x * kFwdThreads + threadIdx.x;\n  if (p >= hw) return;\n"
+    body_start = src.index(head)
+    body_end = src.index("  dispatch(nx > ny ? nx : ny, f);\n}\n", body_start)
+    body = src[body_start + len(head):body_end] + "  dispatch(nx > ny ? nx : ny, f);\n"
+    four = ("  for (int q = 0; q < 4; ++q) {\n"
+            "  const int p = (blockIdx.x * kFwdThreads + threadIdx.x) * 4 + q;\n"
+            "  if (p >= hw) return;\n"
+            + body.replace("    return;\n", "    continue;\n") + "  }\n")
+    grid = "(static_cast<int64_t>(h) * w + kFwdThreads - 1) / kFwdThreads"
+    div = ("  float q = __fmul_rn(a, y);\n  q = __fmaf_rn(__fmaf_rn(-b, q, a), y, q);\n"
+           "  return __fmaf_rn(__fmaf_rn(-b, q, a), y, q);\n")
+    return {
+        "source": src,
+        "registers_uncapped": swap(src, cap, "__launch_bounds__(kFwdThreads)"),
+        "threads256_cap8": swap(src, consts,
+                                "constexpr int kFwdThreads = 256;\nconstexpr int kFwdBlocksPerSM = 8;"),
+        "pixels4_per_thread": swap(src[:body_start] + four + src[body_end + len(
+            "  dispatch(nx > ny ? nx : ny, f);\n"):], grid,
+            "(static_cast<int64_t>(h) * w + 4 * kFwdThreads - 1) / (4 * kFwdThreads)"),
+        "ieee_divisions": swap(src, div, "  (void)y;\n  return a / b;\n"),
+    }
+
+
+def _build_all(sources: dict) -> dict:
+    from one_to_many_gan_torch.ops.cuda import build
+
+    BUILD.mkdir(parents=True, exist_ok=True)
+
+    def one(item):
+        name, text = item
+        path = BUILD / f"warp_{name}.cu"
+        path.write_text(text)
+        lib = BUILD / f"libwarp_{name}.so"
+        t0 = time.perf_counter()
+        proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(path)],
+                              capture_output=True, text=True, check=False)
+        cs.check(proc.returncode == 0, f"nvcc failed for {name}:\n{proc.stdout}{proc.stderr}")
+        regs = [line.strip() for line in (proc.stdout + proc.stderr).splitlines()
+                if "registers" in line or "spill stores" in line]
+        return name, {"lib": lib, "build_s": time.perf_counter() - t0, "ptxas": regs}
+
+    with ThreadPoolExecutor(len(sources)) as pool:
+        return dict(pool.map(one, sources.items()))
+
+
+def warp_variants(torch) -> list:
+    from one_to_many_gan_torch.ops.cuda.warp import RADIUS, warp_plain
+
+    built = _build_all(_warp_sources((ROOT / "one_to_many_gan_torch/csrc/warp.cu").read_text()))
+    for name, info in built.items():
+        cs.log(f"built {name} in {info['build_s']:.1f} s; " + "; ".join(info["ptxas"][-6:]))
+    libs = {}
+    for name, info in built.items():
+        lib = ctypes.CDLL(str(info["lib"]))
+        lib.otm_warp_fwd.argtypes = [*[ctypes.c_void_p] * 6, ctypes.c_longlong,
+                                     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.otm_warp_fwd.restype = ctypes.c_int
+        libs[name] = lib
+    gen = torch.Generator("cuda").manual_seed(7)
+    flush = torch.zeros(128 * 2**20, dtype=torch.uint8, device="cuda")
+    results = []
+    for (b, h, w), dtype_name, aa in WARP_CASES:
+        dtype = getattr(torch, dtype_name)
+        x, sx, sy, wx, wy = cs._warp_inputs(torch, gen, b, h, w, dtype, aa)
+
+        def call(t, lib, sx=sx, sy=sy, wx=wx, wy=wy, dims=(b, h, w), aa=aa):
+            out = torch.empty_like(t)
+            err = lib.otm_warp_fwd(t.data_ptr(), sx.data_ptr(), sy.data_ptr(), wx.data_ptr(),
+                                   wy.data_ptr(), out.data_ptr(), *dims,
+                                   0 if t.dtype == torch.float32 else 1, int(aa), RADIUS,
+                                   torch.cuda.current_stream().cuda_stream)
+            cs.check(err == 0, f"warp variant launch failed: {err}")
+            return out
+
+        want = call(x, libs["source"])
+        plain = warp_plain(x, sx, sy, wx, wy, antialias=aa)
+        torch.cuda.synchronize()
+        cs.check((want.double() - plain.double()).abs().max().item() <= cs.WARP_TOL_BF16_ABS,
+                 "the warp source disagrees with its plain version")
+        for name, lib in libs.items():
+            cs.check(torch.equal(call(x, lib), want), f"warp variant {name} is not bitwise equal")
+        fns = {name: (lambda t, lib=lib: call(t, lib)) for name, lib in libs.items()}
+        if not aa and dtype == torch.float32:
+            grid = torch.stack([sx / (w - 1) * 2 - 1, sy / (h - 1) * 2 - 1], dim=-1)
+            fns["F.grid_sample"] = lambda t, grid=grid: torch.nn.functional.grid_sample(
+                t[:, None], grid, mode="bilinear", padding_mode="zeros", align_corners=True)[:, 0]
+        times = cs.time_cold_ms(torch, fns, x, flush, reps=30)
+        cs.log(f"warp [{b},{h},{w}] {dtype_name} aa={int(aa)}: " + " ".join(
+            f"{k}={v:.4f}" for k, v in sorted(times.items(), key=lambda kv: kv[1])))
+        results.append({"case": [b, h, w, dtype_name, aa], "ms": times})
+    return [{name: {"build_s": i["build_s"], "ptxas": i["ptxas"]} for name, i in built.items()},
+            *results]
+
+
+def main() -> int:
+    import torch
+
+    what = sys.argv[1] if len(sys.argv) > 1 else ""
+    if what not in ("in-plans", "warp-variants"):
+        print(__doc__, file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("sweep_torch_kernels: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    cs.log(smi)
+    results = in_plans(torch) if what == "in-plans" else warp_variants(torch)
+    OUT.mkdir(exist_ok=True)
+    (OUT / f"sweep_{what}.json").write_text(
+        json.dumps({"nvidia_smi": smi, "results": results}, indent=1, default=str))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -47,6 +47,8 @@ from one_to_many_gan_torch.ops.cuda import (
     warp_bwd_sum_bound,
     warp_plain,
 )
+from one_to_many_gan_torch.ops.cuda import instance_norm as in_module
+from one_to_many_gan_torch.ops.cuda.warp import AA_MAX_WIDTH, RADIUS
 
 pytestmark = pytest.mark.cuda
 
@@ -65,11 +67,11 @@ def cuda():
 @pytest.mark.parametrize(
     "shape",
     [
-        (2, 64, 33, 17),  # H*W not a multiple of the vector width: scalar path
-        (2, 16, 62, 62),  # a D-trunk plane: scalar path in bf16, vector in f32
-        (1, 8, 64, 32),  # vector path
-        (3, 5, 128, 64),  # vector path, several unrolled steps per thread
-        (1, 1, 1, 3),  # fewer elements than threads
+        (2, 64, 33, 17),  # H*W no multiple of a 16-byte vector: planes start mid-vector
+        (2, 16, 62, 62),  # a D-trunk plane: packed, mid-vector in bf16
+        (1, 8, 64, 32),  # packed, several planes a block
+        (3, 5, 128, 64),  # one plane a block (f32) / packed (bf16)
+        (1, 1, 1, 3),  # fewer elements than a vector
     ],
 )
 def test_instance_norm_kernel_matches_plain(cuda, shape, dtype, relu):
@@ -83,6 +85,77 @@ def test_instance_norm_kernel_matches_plain(cuda, shape, dtype, relu):
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
     if relu:
         assert (got >= 0).all()
+
+
+def _in_boundary_cases():
+    """(planes, hw, dtype) at each size where ``plan`` changes variant, planes
+    per block or cluster size, and one element to either side."""
+    cases = []
+    for dtype, esize in ((torch.float32, 4), (torch.bfloat16, 2)):
+        edges = [in_module.PACK_BYTES // k for k in (8, 4, 2, 1)]
+        edges += [in_module.SMALL_PLANE_BYTES, in_module.RESIDENT_BYTES]
+        for edge in edges:
+            for hw in (edge // esize - 1, edge // esize, edge // esize + 1):
+                cases.append((3, hw, dtype))
+        largest = (in_module.MAX_DYNAMIC_SMEM - 16) // esize * in_module.MAX_CLUSTER
+        cases += [(1, largest, dtype), (1, largest - 1, dtype)]
+        cases += [(5, 1, dtype), (7, 3, dtype), (1, 900, dtype), (2 * 512, 900, dtype)]
+    return cases
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize(("planes", "hw", "dtype"), _in_boundary_cases())
+def test_instance_norm_every_plan_matches_plain(cuda, planes, hw, dtype, relu):
+    """Every layout of the plan (packed at each planes-per-block, resident,
+    cluster of 2, 4 and 8) at its edges, hw = 1, hw no multiple of 4, one
+    plane, 30^2 planes; also from a pointer one element off 16 bytes."""
+    layout = in_module.plan(planes, hw, dtype)
+    flat = (torch.randn(planes * hw + 1, generator=cuda, device="cuda") * 2 + 0.5).to(dtype)
+    for x in (flat[: planes * hw].view(1, planes, 1, hw), flat[1:].view(1, planes, 1, hw)):
+        assert x.is_contiguous()
+        got = fused_instance_norm(x, relu=relu)
+        want = instance_norm_plain(x, relu=relu)
+        torch.cuda.synchronize()
+        assert (got.float() - want.float()).abs().max().item() <= TOL[dtype], layout
+    assert flat[1:].data_ptr() % 16 != 0
+
+
+@pytest.mark.parametrize("cluster", [2, 4, 8])
+@pytest.mark.parametrize("hw", [30 * 30, 256 * 256 + 3])
+def test_instance_norm_every_cluster_size_matches_plain(cuda, cluster, hw):
+    """The entry runs clusters of 2, 4 and 8 blocks (the plan takes 8)."""
+    x = torch.randn((1, 6, 1, hw), generator=cuda, device="cuda")
+    smem = in_module._range_smem(-(-hw // cluster), 4)
+    layout = in_module.Plan("cluster", 1, cluster, 256, smem, 6 * cluster)
+    got = in_module._launch(x, True, 1e-5, layout)
+    want = instance_norm_plain(x, relu=True)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(32, 512, 30, 30), (2, 64, 256, 256), (1, 4, 512, 256)])
+def test_instance_norm_two_launches_are_bitwise_equal(cuda, shape, dtype):
+    """Fixed summation order and no atomics, also across a cluster's ranks."""
+    x = (torch.randn(shape, generator=cuda, device="cuda") * 3 - 1).to(dtype)
+    a = fused_instance_norm(x, relu=True)
+    b = fused_instance_norm(x, relu=True)
+    assert torch.equal(a, b)
+
+
+def test_instance_norm_refuses_a_plan_it_cannot_take(cuda):
+    """The plan refuses a plane over eight blocks' shared memory; the C
+    entry refuses a bad plan (no other path is taken) and launches nothing."""
+    before = fused_instance_norm.launches
+    too_big = in_module.MAX_CLUSTER * in_module.MAX_DYNAMIC_SMEM // 4 + 1
+    x = torch.zeros((1, 1, 1, too_big), device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_instance_norm(x)
+    small = torch.randn((1, 4, 8, 8), generator=cuda, device="cuda")
+    bad = in_module.Plan("cluster", 2, 2, 256, 0, 0)  # a cluster takes one plane per block
+    with pytest.raises(RuntimeError, match="instance_norm kernel launch failed"):
+        in_module._launch(small, False, 1e-5, bad)
+    assert fused_instance_norm.launches == before
 
 
 def test_instance_norm_kernel_raises_instead_of_falling_back(cuda):
@@ -177,6 +250,85 @@ def test_warp_kernel_zero_far_outside_and_identity(cuda):
                                    rtol=0, atol=1e-6)
         far = warp(x, sx + 1e4, sy - 1e4, ones * 4, ones * 4, antialias=aa)
         assert (far == 0).all()
+
+
+def _below(v: float) -> float:
+    return torch.nextafter(torch.tensor(v), torch.tensor(0.0)).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [1.0, 2.0, 3.0, 4.0, _below(1.0), _below(2.0), _below(3.0),
+                                   _below(4.0)])
+def test_warp_forward_at_tap_count_edges(cuda, width, dtype):
+    """Widths where the tap count changes, and just under them, on both
+    axes and on x alone (y at width 1), with positions on integers,
+    half-integers and across the frame's edges."""
+    b, h, w = 2, 24, 40
+    x = torch.randn((b, h, w), generator=cuda, device="cuda").to(dtype)
+
+    def coords(n: int, other: int, along: int) -> torch.Tensor:
+        c = torch.rand((b, h, w), generator=cuda, device="cuda") * (n + 2 * width) - width
+        edge = torch.arange(other, device="cuda", dtype=torch.float32)
+        if along == 2:  # x coordinates: rows 0 and 1 step across the frame
+            c[:, 0], c[:, 1] = edge * 0.5 - 2, edge - 1
+        else:  # y coordinates: columns 0 and 1
+            c[:, :, 0], c[:, :, 1] = edge * 0.5 - 2, edge - 1
+        return c.contiguous()
+
+    sx, sy = coords(w, w, 2), coords(h, h, 1)
+    wide = torch.full((b,), width, device="cuda")
+    for wy in (wide, torch.ones(b, device="cuda")):
+        got = warp(x, sx, sy, wide, wy, antialias=True)
+        want = warp_plain(x, sx, sy, wide, wy, antialias=True)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        if dtype == torch.float32:
+            assert (got - want).abs().max().item() <= 2e-6
+        else:
+            assert _bf16_tol_ratio(got, want, x) <= 1.0
+
+
+@pytest.mark.parametrize("antialias", [False, True])
+@pytest.mark.parametrize("minify", [1.0, 2.7])
+def test_warp_forward_weights_are_the_plain_versions_bitwise(cuda, minify, antialias):
+    """On a comb of unit impulses 11 pixels apart each output pixel sees at
+    most one nonzero tap, so the kernel's output is RN(wy * wx) exactly as
+    the plain version's: its weights (divisions by the width and by the
+    normaliser, the normaliser's sum) equal the plain version's bitwise."""
+    b, h, w = 4, 64, 96
+    x = torch.zeros((b, h, w), device="cuda")
+    x[:, ::11, ::11] = 1.0
+    sx, sy, g = _warp_inputs(cuda, b, h, w, minify=minify)
+    wx, wy = tent_widths(g, antialias=antialias)
+    got = warp(x, sx, sy, wx, wy, antialias=antialias)
+    want = warp_plain(x, sx, sy, wx, wy, antialias=antialias)
+    torch.cuda.synchronize()
+    assert (got != 0).sum().item() >= 100
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_warp_forward_beyond_the_extended_range_and_too_wide(cuda, dtype):
+    """Positions beyond the extended taps [-RADIUS, n + RADIUS) give exactly
+    0; an image whose tent is wider than the dispatch takes comes out NaN,
+    and only that image."""
+    b, h, w = 3, 16, 16
+    x = torch.randn((b, h, w), generator=cuda, device="cuda").to(dtype)
+    ys, xs = torch.meshgrid(torch.arange(h, device="cuda", dtype=torch.float32),
+                            torch.arange(w, device="cuda", dtype=torch.float32), indexing="ij")
+    sy = ys.expand(b, h, w).contiguous()
+    width = torch.full((b,), AA_MAX_WIDTH, device="cuda")
+    for beyond in (-RADIUS - AA_MAX_WIDTH - 0.5, w + RADIUS + AA_MAX_WIDTH + 0.5, 1e30,
+                   -float("inf")):
+        sx = torch.full((b, h, w), beyond, device="cuda")
+        assert (warp(x, sx, sy, width, width, antialias=True) == 0).all()
+    sx = xs.expand(b, h, w).contiguous()
+    too_wide = width.clone()
+    too_wide[1] = torch.nextafter(torch.tensor(AA_MAX_WIDTH), torch.tensor(5.0)).item()
+    out = warp(x, sx, sy, too_wide, width, antialias=True)
+    torch.cuda.synchronize()
+    assert out[1].isnan().all()
+    assert torch.isfinite(out[0]).all() and torch.isfinite(out[2]).all()
 
 
 def test_warp_raises_instead_of_falling_back(cuda):
