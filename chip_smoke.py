@@ -16,7 +16,8 @@ started together), then runs, in order:
    kernel's plan, a second launch that must be bitwise equal, the
    kernel's, the plain version's, the library call's and the memory
    bound's times, and their sums per encode, per D step and per fused
-   step;
+   step; and a bfloat16 site of |mean| / std ~ 10^3, where the moment and
+   the centred variance give different outputs, in every block layout;
 3. the HTTP server of ``configs/default.toml`` at full width (512x256,
    float32, fresh weights from seed 0): ``/generate`` at n = 8, 32, 64,
    zip and npy, a concurrent burst, ``/healthz`` and ``/stats``, with the
@@ -43,11 +44,15 @@ started together), then runs, in order:
    inputs; and, on the CPU's inputs, the card's gradients (as configured,
    with cuDNN deterministic, without cuDNN, with TF32 on) and the CPU's
    against a float64 pass on the CPU;
-10. the warp backward kernel against its plain version at the same
-   shapes, dtypes and antialias modes as phase 7, with a normal
-   cotangent, through the wrapper and through autograd, with the
-   kernel's, the plain version's, ``grid_sampler_2d_backward``'s
-   (antialias off, float32) and the bound's times;
+10. the warp backward (a pre-pass and a gather) against its plain
+   version at the same shapes, dtypes and antialias modes as phase 7,
+   with a normal cotangent, through the wrapper and through autograd,
+   two launches bitwise equal, with the kernel's, the plain version's,
+   ``grid_sampler_2d_backward``'s (antialias off, float32) and the
+   bound's times; then on rotations by multiples of 90 degrees and flips,
+   4x magnification, tents at the width cap and random non-affine
+   coordinates; under ``torch.use_deterministic_algorithms(True)``; its
+   NaN contract; and the pre-pass's share of its device time;
 11. the fused training step (D phase, then G phase) at the bench config
    with the lazy path term every 8th step: 3 warm-up and 16 timed steps,
    with the launch counts per step (3 warp forwards, 1 warp backward, 30
@@ -55,12 +60,18 @@ started together), then runs, in order:
    the path loss is positive on path steps and 0 on the others, that the
    generator, mapping and extractor moved and that the step counter
    advanced; path and other steps timed apart, their peak memory, and
-   one of each under ``torch.profiler``;
+   one of each under ``torch.profiler``, with the device time of the
+   replication and reflection pads (forward kernels and the
+   deterministic backward's);
 12. the card against the CPU: one float32 fused path step (TF32 off) at
    256x256, batch 4, on the same weights, batches and draws: the G
    metrics and the gradients of generator, mapping and extractor, and
    both sides' gradients against a float64 pass of the G phase on the CPU
-   on the CPU's inputs (the card's on those inputs too).
+   on the CPU's inputs (the card's on those inputs too);
+13. the fused step of phase 11 with ``training.deterministic_cuda_kernels
+   = true``, twice from seed 0 for 3 steps: every parameter, Adam moment,
+   ADA and buffer tensor and every metric bitwise equal between the two
+   runs, the steps timed beside phase 11's.
 
 Any failed check raises, and the script exits non-zero. Before its last
 line it prints one JSON line ``{"kernels": [...]}``; its last line is
@@ -74,6 +85,7 @@ import contextlib
 import copy
 import io
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -217,6 +229,9 @@ G_GRAD_RTOL = 2e-2
 G_GRAD_F64_RTOL = 1.5e-2
 G_GRAD_PINNED_RTOL = 2e-4
 G_MAX_FLIP_SHARE = 3e-6
+# Phase 13: fused steps per run, two runs from one seed under
+# training.deterministic_cuda_kernels = true; step 0 is a path step.
+DET_STEPS = 3
 
 
 def log(msg: str) -> None:
@@ -354,9 +369,74 @@ def phase_kernels(torch) -> dict:
     slower = [{k: c[k] for k in ("dtype", "b", "c", "h", "w", "relu", "over_library")}
               for c in cases if c["over_library"] > 1]
     log(f"IN sites slower than F.instance_norm: {len(slower)} of {len(cases)} {slower}")
-    log(f"phase 2 ok: {len(cases)} kernel cases within tolerance, repeats bitwise equal")
+    high_mean = _in_high_mean(torch)
+    log(f"phase 2 ok: {len(cases)} kernel cases and the bf16 high-|mean| site in "
+        f"{len(high_mean['layouts'])} layouts within tolerance, repeats bitwise equal")
     return {"cases": cases, "per_encode": encode, "per_d_step": d_step,
-            "per_fused_step": fused, "slower_than_library": slower}
+            "per_fused_step": fused, "slower_than_library": slower, "high_mean_bf16": high_mean}
+
+
+def high_mean_planes(torch, planes: int, device, seed: int = 0):
+    """[1, planes, 16, 16] bfloat16 planes of 255 with 11 pixels at 256
+    (at seeded random places): |mean| / std = 1258. Every sum and sum of
+    squares of such a plane is exact in float32, in any order, so any
+    summation gives the same moment statistics; and there the moment
+    variance max(E[x^2] - E[x]^2, 0) gives another bf16 rstd than the
+    centred one (4.8125 against 4.9375), so the two formulas' outputs
+    differ by 0.125, beyond the 0.05 tolerance."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.full((planes, 256), 255.0)
+    for k in range(planes):
+        x[k, torch.randperm(256, generator=gen)[:11]] = 256.0
+    return x.view(1, planes, 16, 16).to(device=device, dtype=torch.bfloat16)
+
+
+def centred_bf16_plain(torch, x):
+    """The bf16 instance norm with the centred variance in place of the
+    moment form: what the kernel computed in bfloat16 before it followed
+    its plain version."""
+    xf = x.float()
+    mean = xf.mean(dim=(2, 3), keepdim=True)
+    var = (xf - mean).square().mean(dim=(2, 3), keepdim=True)
+    return (x - mean.to(torch.bfloat16)) * torch.rsqrt(var + 1e-5).to(torch.bfloat16)
+
+
+def _in_high_mean(torch) -> dict:
+    """The bf16 high-|mean| site (``high_mean_planes``) through the plan's
+    layout and every other: packed at 1, 2, 4 and 8 planes a block,
+    resident, clusters of 2, 4 and 8; each held to the plain version within
+    IN_TOL, and the centred formula shown to lie beyond it."""
+    from one_to_many_gan_torch.ops.cuda import fused_instance_norm, instance_norm_plain
+    from one_to_many_gan_torch.ops.cuda import instance_norm as m
+
+    x = high_mean_planes(torch, 64, "cuda")
+    planes, hw = x.shape[1], x.shape[2] * x.shape[3]
+    want = instance_norm_plain(x)
+    layouts = {"plan": None, "resident": m.Plan("resident", 1, 1, 256, m._range_smem(hw, 2),
+                                                planes)}
+    for ppb in (2, 4, 8):
+        layouts[f"packed{ppb}"] = m.Plan("packed", ppb, 1, 256, m._range_smem(ppb * hw, 2),
+                                         -(-planes // ppb))
+    for cluster in (2, 4, 8):
+        layouts[f"cluster{cluster}"] = m.Plan("cluster", 1, cluster, 256,
+                                              m._range_smem(-(-hw // cluster), 2),
+                                              planes * cluster)
+    errs = {}
+    for name, layout in layouts.items():
+        got = (fused_instance_norm(x) if layout is None
+               else m._launch(x, False, 1e-5, layout))
+        errs[name] = (got.float() - want.float()).abs().max().item()
+    centred = (centred_bf16_plain(torch, x).float() - want.float()).abs().max().item()
+    stats = x.float().view(planes, -1)
+    ratio = (stats.mean(1).abs() / stats.std(1, unbiased=False)).min().item()
+    log(f"IN bf16 high-|mean| site [1,{planes},16,16], |mean|/std >= {ratio:.0f}: max abs err "
+        f"per layout " + " ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (tol {IN_TOL['bfloat16']}); the centred formula lies {centred:.3g} away")
+    for name, err in errs.items():
+        check(err <= IN_TOL["bfloat16"], f"IN high-|mean| site, layout {name}: {err}")
+    check(centred > IN_TOL["bfloat16"], f"the high-|mean| site does not tell the formulas "
+          f"apart: the centred one lies {centred} from the plain version")
+    return {"layouts": errs, "centred_vs_plain": centred, "mean_over_std": ratio}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -558,9 +638,12 @@ def phase_bf16(torch, config, source: np.ndarray, card_f32: np.ndarray):
 # ---------------------------------------------------------------- phase 6
 
 
-def profile_call(torch, fn, label: str) -> dict:
+def profile_call(torch, fn, label: str, ranges: tuple = (), select=None) -> dict:
     """Kernels of one ``fn()`` ranked by device time, and the device's busy
-    share of its wall time (``fn`` ends in a host read or a sync)."""
+    share of its wall time (``fn`` ends in a host read or a sync); for each
+    ``torch.profiler.record_function`` range named in ``ranges``, the
+    device time of the kernels launched inside it; every kernel whose name
+    ``select`` accepts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -571,8 +654,15 @@ def profile_call(torch, fn, label: str) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = []
+    kernels, in_ranges = [], dict.fromkeys(ranges, 0.0)
     for evt in prof.key_averages():
+        if evt.key in in_ranges:
+            # the host range's kernels; the device-side span of the range is
+            # no kernel and is left out of the busy time
+            if evt.device_type == DeviceType.CPU:
+                us = getattr(evt, "device_time_total", None)
+                in_ranges[evt.key] = (us if us is not None else evt.cuda_time_total) / 1e3
+            continue
         if evt.device_type != DeviceType.CUDA:
             continue
         us = getattr(evt, "self_device_time_total", None)
@@ -588,7 +678,8 @@ def profile_call(torch, fn, label: str) -> dict:
     for k in kernels[:12]:
         log(f"  {k['ms']:9.3f} ms {k['ms'] / busy_ms:6.1%} x{k['calls']:<4d} {k['name'][:110]}")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
-            "kernels": kernels[:40]}
+            "kernels": kernels[:40], "ranges_ms": in_ranges,
+            "selected": [k for k in kernels if select is not None and select(k["name"])]}
 
 
 def phase_profile(torch, engine, source: np.ndarray, label: str, n: int = 64) -> dict:
@@ -956,6 +1047,7 @@ def phase_warp_bwd(torch) -> dict:
                 dout = torch.randn((b, h, w), generator=gen, device="cuda").to(dtype)
                 coords = (sx, sy, wx, wy)
                 got = warp_bwd(dout, *coords, antialias=aa)
+                again = warp_bwd(dout, *coords, antialias=aa)
                 want = warp_bwd_plain(dout, *coords, antialias=aa)
                 # the card's autograd path: the forward kernel, then the
                 # backward kernel on the cotangent
@@ -999,19 +1091,15 @@ def phase_warp_bwd(torch) -> dict:
                 # the function's bytes: dout, sx, sy and the widths read once,
                 # dimg written once
                 nbytes = px * (2 * esize + 8) + 2 * b * 4
-                # the kernel's own traffic beside them: the float32
-                # accumulator zeroed, one read-modify-write by its atomics
-                # and, in bf16, re-read by the cast
-                scratch = px * (4 + 8 + (4 if dtype == torch.bfloat16 else 0))
                 taps = (_taps(torch, sx, wx, w, aa) * _taps(torch, sy, wy, h, aa)).sum().item()
                 ops_ms = 2 * taps / F32_FLOP_PER_S * 1e3
                 case = {
                     "b": b, "h": h, "w": w, "dtype": dtype_name, "antialias": aa,
                     "max_abs_err": err, "autograd_max_abs_err": auto_err,
                     "bf16_excess_of_sum_bound": excess, "library_err": lib_err,
+                    "repeat_bitwise_equal": torch.equal(got, again),
                     "max_abs_dimg": want.abs().max().item(),
                     "taps_per_pixel": taps / px, "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                    "with_scratch_bytes_ms": (nbytes + scratch) / HBM_BYTES_PER_S * 1e3,
                     "ops_ms": ops_ms, **times, "library_ms": times.get("library_ms"),
                 }
                 case["bound_ms"] = max(case["bytes_ms"], ops_ms)
@@ -1023,9 +1111,9 @@ def phase_warp_bwd(torch) -> dict:
                     f"(autograd {auto_err:.3g}; bf16 beyond one ulp {excess:.3f} of the sum bound; "
                     f"max |dimg| {case['max_abs_dimg']:.3g}) kernel {case['kernel_ms']:.4f} ms "
                     f"plain {case['plain_ms']:.4f} ms {lib_txt} bound {case['bound_ms']:.4f} ms "
-                    f"({case['bound_by']}; {case['with_scratch_bytes_ms']:.4f} ms with the "
-                    f"accumulator); {case['taps_per_pixel']:.1f} taps/pixel")
+                    f"({case['bound_by']}); {case['taps_per_pixel']:.1f} taps/pixel")
                 check(torch.isfinite(got).all().item(), f"warp_bwd output not finite: {case}")
+                check(case["repeat_bitwise_equal"], f"two warp_bwd launches differ: {case}")
                 if dtype == torch.float32:
                     check(max(err, auto_err) <= WARP_TOL_F32,
                           f"warp_bwd kernel disagrees with its plain version: {case}")
@@ -1040,14 +1128,213 @@ def phase_warp_bwd(torch) -> dict:
                     # grid (~1e-4 px), times |dout| summed over a pixel's terms
                     check(lib_err <= 1e-3 * case["max_abs_dimg"],
                           f"grid_sampler_2d_backward is not the same function: {case}")
-                del x, dout, got, want, xr, out
+                del x, dout, got, again, want, xr, out
+    draws = _gather_draw_cases(torch, gen, flush)
+    modes = _gather_modes(torch, gen)
+    shares = _gather_prepass_share(torch, gen)
     del flush
     torch.cuda.empty_cache()
-    log(f"phase 10 ok: {len(cases)} warp backward cases within tolerance")
-    return {"cases": cases}
+    log(f"phase 10 ok: {len(cases)} + {len(draws)} warp backward cases within tolerance, "
+        "two launches bitwise equal in each")
+    return {"cases": cases, "draw_cases": draws, "modes": modes, "prepass_share": shares}
+
+
+def _check_bwd(torch, got, want, dout, coords, aa: bool, label: str) -> dict:
+    """The gather against its plain version. bfloat16: one bf16 ulp +
+    ``warp_bwd_sum_bound`` per pixel, as phase 10's main cases. float32:
+    2e-6 + ``warp_bwd_sum_bound`` per pixel: under a 4x magnification a
+    pixel sums ~16-64 terms to |dimg| ~ 20, whose float32 rounding in any
+    order (the bound) exceeds 2e-6 alone; ``over_2e-6`` says whether the
+    error did."""
+    from one_to_many_gan_torch.ops.cuda import warp_bwd_sum_bound
+
+    diff = (got.double() - want.double()).abs()
+    err = diff.max().item()
+    check(torch.isfinite(got).all().item(), f"{label}: warp_bwd output not finite")
+    bound = warp_bwd_sum_bound(dout, *coords, antialias=aa).clamp_min(1e-300)
+    if got.dtype == torch.float32:
+        excess = ((diff - WARP_TOL_F32).clamp_min(0) / bound).max().item()
+    else:
+        mag = torch.maximum(got.double().abs(), want.double().abs())
+        ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(2.0**-126))) - 7)
+        excess = ((diff - ulp).clamp_min(0) / bound).max().item()
+    check(excess <= 1.0 and err <= WARP_TOL_BF16_ABS,
+          f"{label}: warp_bwd off its plain version ({err}, {excess} of the sum bound)")
+    return {"max_abs_err": err, "excess_of_sum_bound": excess,
+            "over_2e-6": got.dtype == torch.float32 and err > WARP_TOL_F32}
+
+
+def gather_transforms(torch, gen, b: int, h: int, w: int, device="cuda") -> dict:
+    """Inverse transforms [b, 3, 3] that the warp backward's gather finds
+    hardest: rotations by multiples of 90 degrees with and without the
+    x-flip (the hint's inverse swaps and negates axes), ADA draws at p = 1
+    magnified 4x (a tile's region outgrows a block's shared memory:
+    chunks) and minified 4x (tents to the width cap, 9 taps a side)."""
+    import math
+
+    from one_to_many_gan_torch.augment.pipeline import draw_augment, geometric_matrix
+
+    k = torch.arange(b, device=device)
+    ang = (k % 4).float() * (math.pi / 2)
+    c, s = torch.cos(ang).round(), torch.sin(ang).round()
+    flip = 1.0 - 2.0 * (k // 4 % 2).float()
+    rot = torch.zeros((b, 3, 3), device=device)
+    rot[:, 0, 0], rot[:, 0, 1], rot[:, 1, 0], rot[:, 1, 1] = c * flip, -s, s * flip, c
+    rot[:, 2, 2] = 1.0
+    ada = geometric_matrix(draw_augment(gen, b, device).geom, h, w,
+                           torch.tensor(1.0, device=device))
+
+    def scale(f: float):
+        return torch.diag(torch.tensor([f, f, 1.0], device=device))
+
+    return {"rot90_flip": rot, "magnify_4x": ada @ scale(0.25), "minify_4x": ada @ scale(4.0)}
+
+
+def _gather_draw_cases(torch, gen, flush) -> list:
+    """The gather at [16, 256, 256] on ``gather_transforms``, both
+    dtypes, antialias on (the width-cap case with widths of exactly
+    AA_MAX_WIDTH), and on random, non-affine coordinates at [4, 8, 8]: each
+    held to the plain version, two launches bitwise equal, timed."""
+    from one_to_many_gan_torch.augment.pipeline import source_coords, tent_widths
+    from one_to_many_gan_torch.ops.cuda import warp_bwd, warp_bwd_plain
+    from one_to_many_gan_torch.ops.cuda.warp import AA_MAX_WIDTH
+
+    b, h, w = WARP_SHAPES[0]
+    inputs = []
+    for label, g in gather_transforms(torch, gen, b, h, w).items():
+        sx, sy = source_coords(g, h, w)
+        wx, wy = tent_widths(g, antialias=True)
+        if label == "minify_4x":  # the width cap
+            label, wx, wy = "width_cap", *(torch.full((b,), AA_MAX_WIDTH, device="cuda"),) * 2
+        inputs.append((label, (b, h, w), (sx.contiguous(), sy.contiguous(), wx, wy)))
+    rb, rh, rw = 4, 8, 8
+    rand = [torch.rand((rb, rh, rw), generator=gen, device="cuda") * (n + 4) - 2
+            for n in (rw, rh)]
+    widths = torch.full((rb,), 1.5, device="cuda")
+    inputs.append(("random_8x8", (rb, rh, rw), (*rand, widths, widths)))
+    cases = []
+    for label, shape, coords in inputs:
+        for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            dout = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            got = warp_bwd(dout, *coords, antialias=True)
+            again = warp_bwd(dout, *coords, antialias=True)
+            want = warp_bwd_plain(dout, *coords, antialias=True)
+            torch.cuda.synchronize()
+            case = {"case": label, "shape": list(shape), "dtype": dtype_name,
+                    **_check_bwd(torch, got, want, dout, coords, True, f"warp_bwd {label}"),
+                    "repeat_bitwise_equal": torch.equal(got, again),
+                    "widths": [coords[2].min().item(), coords[2].max().item(),
+                               coords[3].min().item(), coords[3].max().item()],
+                    **time_cold_ms(torch, {"kernel_ms": lambda t, c=coords: warp_bwd(
+                        t, *c, antialias=True)}, dout, flush, reps=10)}
+            check(case["repeat_bitwise_equal"], f"two warp_bwd launches differ: {case}")
+            cases.append(case)
+            log(f"warp_bwd {label} {list(shape)} {dtype_name:8s}: max_abs_err "
+                f"{case['max_abs_err']:.3g} (beyond 2e-6 in f32 / one ulp in bf16: "
+                f"{case['excess_of_sum_bound']:.3f} of the sum bound), repeat bitwise "
+                f"equal, kernel {case['kernel_ms']:.4f} ms, widths "
+                + "/".join(f"{v:.2f}" for v in case["widths"]))
+    return cases
+
+
+def _gather_modes(torch, gen) -> dict:
+    """The gather under ``torch.use_deterministic_algorithms(True)`` (it
+    runs, with the same bits as outside it), and its NaN contract: with
+    antialias, an image with one NaN coordinate, or one whose width the
+    dispatch refuses, comes out NaN over the whole image, the others
+    finite and unchanged."""
+    from one_to_many_gan_torch.ops.cuda import warp_bwd
+    from one_to_many_gan_torch.ops.cuda.warp import AA_MAX_WIDTH
+
+    b, h, w = 4, 64, 64
+    x, sx, sy, wx, wy = _warp_inputs(torch, gen, b, h, w, torch.bfloat16, True)
+    dout = torch.randn((b, h, w), generator=gen, device="cuda").to(torch.bfloat16)
+    plain = warp_bwd(dout, sx, sy, wx, wy, antialias=True)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        det = warp_bwd(dout, sx, sy, wx, wy, antialias=True)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    check(torch.equal(plain, det), "warp_bwd under deterministic algorithms differs")
+    nan_sx = sx.clone()
+    nan_sx[1, 5, 7] = float("nan")
+    wide = wx.clone()
+    wide[2] = torch.nextafter(torch.tensor(AA_MAX_WIDTH), torch.tensor(5.0)).item()
+    out = warp_bwd(dout, nan_sx, sy, wide, wy, antialias=True)
+    torch.cuda.synchronize()
+    check(out[1].isnan().all().item() and out[2].isnan().all().item(),
+          "warp_bwd: a NaN coordinate or a refused width did not give a NaN image")
+    check(torch.equal(out[0], plain[0]) and torch.equal(out[3], plain[3]),
+          "warp_bwd: a NaN image changed another image's cotangent")
+    log("warp_bwd: runs under torch.use_deterministic_algorithms(True) with the same bits; "
+        "a NaN coordinate or a refused width gives that image a NaN cotangent, the others "
+        "unchanged")
+    return {"deterministic_mode_bitwise_equal": True, "nan_contract": True}
+
+
+def _gather_prepass_share(torch, gen) -> dict:
+    """Device time of the pre-pass and of the gather over 20 calls at the
+    fused step's [16, 256, 256], bf16, antialias on, ADA draws at p = 0.9
+    (torch.profiler, warm L2)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from one_to_many_gan_torch.ops.cuda import warp_bwd
+
+    b, h, w = WARP_SHAPES[0]
+    x, sx, sy, wx, wy = _warp_inputs(torch, gen, b, h, w, torch.bfloat16, True)
+    dout = torch.randn((b, h, w), generator=gen, device="cuda").to(torch.bfloat16)
+    warp_bwd(dout, sx, sy, wx, wy, antialias=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            warp_bwd(dout, sx, sy, wx, wy, antialias=True)
+        torch.cuda.synchronize()
+    us = {}
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and "warp_bwd" in evt.key:
+            t = getattr(evt, "self_device_time_total", None)
+            us["hint" if "hint" in evt.key else "gather"] = (
+                t if t is not None else evt.self_cuda_time_total) / 20
+    check(set(us) == {"hint", "gather"}, f"the profiler saw {sorted(us)} of the backward")
+    share = us["hint"] / (us["hint"] + us["gather"])
+    log(f"warp_bwd [16,256,256] bf16 aa=1, warm L2: pre-pass {us['hint'] / 1e3:.4f} ms, gather "
+        f"{us['gather'] / 1e3:.4f} ms per call; the pre-pass's share {share:.1%}")
+    return {"hint_ms": us["hint"] / 1e3, "gather_ms": us["gather"] / 1e3, "share": share}
 
 
 # ---------------------------------------------------------------- phase 11
+
+
+PAD_FOLD_RANGE = "pad_fold"
+
+
+def _is_pad_kernel(name: str) -> bool:
+    """PyTorch's replication and reflection pad kernels, by name."""
+    return "pad" in name and ("replication" in name or "reflection" in name)
+
+
+@contextlib.contextmanager
+def _pad_fold_range(torch):
+    """Inside the block, every backward of the deterministic pads
+    (``ops/pad.py::_fold``) runs in a ``record_function`` range named
+    PAD_FOLD_RANGE, so that a profile can sum the device time of its
+    kernels (plain copies, sums and adds, which carry no name of their
+    own)."""
+    from one_to_many_gan_torch.ops import pad as pad_module
+
+    fold = pad_module._fold
+
+    def ranged(*args):
+        with torch.profiler.record_function(PAD_FOLD_RANGE):
+            return fold(*args)
+
+    pad_module._fold = ranged
+    try:
+        yield
+    finally:
+        pad_module._fold = fold
 
 
 def _params_of(state) -> list:
@@ -1118,9 +1405,21 @@ def phase_fused_step(torch) -> dict:
             train.run_step(config, models, state, train_step, gen)
         return fn
 
-    profiles = {kind: profile_call(torch, at_step(k), f"fused {kind} step ({D_SIZE}x{D_SIZE}, "
-                                   f"batch {D_BATCH}, bf16)")
-                for kind, k in (("path", G_INTERVAL), ("off", G_INTERVAL + 1))}
+    with _pad_fold_range(torch):
+        profiles = {kind: profile_call(torch, at_step(k), f"fused {kind} step ({D_SIZE}x{D_SIZE}, "
+                                       f"batch {D_BATCH}, bf16)", ranges=(PAD_FOLD_RANGE,),
+                                       select=_is_pad_kernel)
+                    for kind, k in (("path", G_INTERVAL), ("off", G_INTERVAL + 1))}
+    for kind, prof in profiles.items():
+        pads = prof["selected"]
+        fwd = sum(k["ms"] for k in pads if "backward" not in k["name"])
+        atomic = [k["name"] for k in pads if "backward" in k["name"]]
+        check(not atomic, f"PyTorch's own pad backward still runs in the {kind} step: {atomic}")
+        bwd = prof["ranges_ms"][PAD_FOLD_RANGE]
+        prof["pads_ms"] = {"forward": fwd, "backward_fold": bwd}
+        log(f"  pads in the {kind} step: forward kernels {fwd:.2f} ms, deterministic backward "
+            f"(the fold's kernels) {bwd:.2f} ms; {(fwd + bwd) / prof['busy_ms']:.1%} of the "
+            "device's busy time")
     log("phase 11 ok")
     return {"step_ms": step_ms, "median_ms": med, "mean_ms": mean,
             "images_per_s": D_BATCH / mean * 1e3, "peak_bytes": peak, "launches": launches,
@@ -1278,6 +1577,97 @@ def phase_g_card_vs_cpu(torch) -> dict:
             "activation_inputs": n_inputs}
 
 
+# ---------------------------------------------------------------- phase 13
+
+
+def _train_state_tensors(state) -> dict:
+    """Copies of every tensor of a TrainState: the four modules' parameters,
+    the four Adams' moments and step counts, the ADA state and the replay
+    buffer."""
+    out = {}
+    for name in ("generator", "mapping", "discriminator", "extractor"):
+        for n, p in getattr(state, name).named_parameters():
+            out[f"{name}.{n}"] = p.detach().clone()
+    for name in ("opt_d", "opt_g", "opt_m", "opt_s"):
+        opt = getattr(state, name)
+        params = [p for group in opt.param_groups for p in group["params"]]
+        for k, p in enumerate(params):
+            for key, value in opt.state[p].items():
+                out[f"{name}.{k}.{key}"] = value.clone()  # torch keeps Adam's step a tensor
+    for key, value in state.ada._asdict().items():
+        out[f"ada.{key}"] = value.clone()
+    for key, value in state.buffer._asdict().items():
+        out[f"buffer.{key}"] = value.clone()
+    return out
+
+
+def phase_deterministic(torch, fused: dict) -> dict:
+    """Two runs of DET_STEPS fused steps from seed 0 at phase 11's config
+    with ``training.deterministic_cuda_kernels = true``: every tensor of
+    the training state and every metric bitwise equal between them; the
+    steps timed beside phase 11's. The process-wide flags are set back
+    afterwards."""
+    from one_to_many_gan_torch import train
+    from one_to_many_gan_torch.core.train_step import make_train_step
+    from one_to_many_gan_torch.device import CUBLAS_WORKSPACE_CONFIG
+    from one_to_many_gan_torch.ops.cuda import fused_instance_norm, warp, warp_bwd
+
+    config = d_phase_config("bfloat16", D_BATCH, path_interval=G_INTERVAL)
+    config["training"]["deterministic_cuda_kernels"] = True
+    cudnn = torch.backends.cudnn
+    flags = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(), cudnn.deterministic,
+             cudnn.benchmark)
+    counters = (warp, warp_bwd, fused_instance_norm)
+    runs = []
+    try:
+        for _ in range(2):
+            models, state, gen = train.setup(config, seed=0, ada_p=D_ADA_P, device="cuda")
+            check(torch.are_deterministic_algorithms_enabled() and cudnn.deterministic
+                  and not cudnn.benchmark
+                  and os.environ.get("CUBLAS_WORKSPACE_CONFIG") == CUBLAS_WORKSPACE_CONFIG,
+                  "Models did not set the deterministic flags")
+            train_step = make_train_step(config, models)
+            metrics, ms = [], []
+            for step in range(DET_STEPS):
+                c0 = [c.launches for c in counters]
+                t0 = time.perf_counter()
+                state, m = train.run_step(config, models, state, train_step, gen)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                counts = [c.launches - k for c, k in zip(counters, c0, strict=True)]
+                check(counts == [G_WARPS_PER_STEP, G_WARP_BWDS_PER_STEP, G_IN_PER_STEP],
+                      f"deterministic step {step}: {counts} warp, warp_bwd and IN launches")
+                metrics.append({k: v.detach().clone() for k, v in m.items()})
+            check(metrics[0]["path_loss"].item() > 0, "deterministic step 0 is no path step")
+            runs.append({"state": _train_state_tensors(state), "metrics": metrics, "ms": ms})
+            del models, state, train_step, gen
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(flags[0], warn_only=flags[1])
+        cudnn.deterministic, cudnn.benchmark = flags[2], flags[3]
+    a, b = runs
+    check(a["state"].keys() == b["state"].keys(), "the two runs hold different state")
+    differ = [k for k in a["state"] if not torch.equal(a["state"][k], b["state"][k])]
+    differ += [f"step {i} {k}" for i, (ma, mb) in enumerate(zip(a["metrics"], b["metrics"],
+                                                               strict=True))
+               for k in ma if not torch.equal(ma[k], mb[k])]
+    n_elems = sum(v.numel() for v in a["state"].values())
+    log(f"deterministic fused steps ({D_SIZE}x{D_SIZE}, batch {D_BATCH}, bf16, path interval "
+        f"{G_INTERVAL}): two runs of {DET_STEPS} steps from seed 0; {len(a['state'])} state "
+        f"tensors ({n_elems} elements) and {len(a['metrics'][0])} metrics per step compared, "
+        f"{len(differ)} differ {differ[:8]}")
+    log("  step ms (step 0 a path step): run 1 " + ", ".join(f"{t:.2f}" for t in a["ms"])
+        + "; run 2 " + ", ".join(f"{t:.2f}" for t in b["ms"])
+        + f"; phase 11 (not deterministic): median path {fused['median_ms']['path']:.2f}, "
+        f"other {fused['median_ms']['off']:.2f}")
+    check(not differ, f"two deterministic runs differ: {differ[:20]}")
+    log("phase 13 ok")
+    return {"step_ms": [a["ms"], b["ms"]], "state_tensors": len(a["state"]),
+            "state_elements": n_elems, "differ": differ,
+            "metrics": [{k: v.item() for k, v in m.items()} for m in a["metrics"]]}
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -1288,7 +1678,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 1
     from one_to_many_gan_torch.config import load_config
+    from one_to_many_gan_torch.device import set_cublas_workspace
     from one_to_many_gan_torch.ops.cuda import build
+
+    set_cublas_workspace()  # phase 13 trains deterministically: before cuBLAS starts
 
     t_start = time.perf_counter()
     report = {"environment": phase_environment(torch, build)}
@@ -1314,6 +1707,8 @@ def main() -> int:
     report["fused_step"] = phase_fused_step(torch)
     torch.cuda.empty_cache()
     report["g_card_vs_cpu"] = phase_g_card_vs_cpu(torch)
+    torch.cuda.empty_cache()
+    report["deterministic"] = phase_deterministic(torch, report["fused_step"])
 
     fused = report["fused_step"]["launches"]
     enc = report["kernels"]["per_encode"]["float32_b1"]
@@ -1382,9 +1777,10 @@ def main() -> int:
         "bound_ms": b_case["bound_ms"],
         "bound_by": b_case["bound_by"],
         "library_ms": None,
-        "per": "one call at the fused step's [16,256,256], bfloat16, antialias on, cold L2; "
-               "no single PyTorch call computes the antialiased warp's gradient",
-        "with_accumulator_bound_ms": b_case["with_scratch_bytes_ms"],
+        "per": "one call (pre-pass and gather) at the fused step's [16,256,256], bfloat16, "
+               "antialias on, cold L2; no single PyTorch call computes the antialiased warp's "
+               "gradient",
+        "prepass_share_warm": report["warp_bwd"]["prepass_share"]["share"],
         "grid_sampler_2d_backward_ms_antialias_off_f32": b_off["library_ms"],
         "kernel_ms_antialias_off_f32": b_off["kernel_ms"],
         "launches_by_phase": {"fused step (phase 11)": fused["warp_bwd"]},

@@ -128,7 +128,9 @@ def check_training_options(config: Config) -> None:
     """Raise ``NotImplementedError`` for a training option the port does
     not run yet: R1 (``r1_gamma > 0``), generator EMA (``ema_decay > 0``),
     the 2x supersampled ADA warp (``ada_supersample``) or the generator
-    loss's two accumulated sub-backwards (``g_loss_split``)."""
+    loss's two accumulated sub-backwards (``g_loss_split``).
+    ``training.deterministic_cuda_kernels`` is not refused: ``Models``
+    runs it (``device.use_deterministic_kernels``)."""
     for key, off in _NOT_PORTED.items():
         if config["tpu"][key]:
             msg = (

@@ -17,7 +17,12 @@ from torch import nn
 from one_to_many_gan_torch.augment.controller import AdaState, init_ada_state
 from one_to_many_gan_torch.config import Config
 from one_to_many_gan_torch.core.buffer import BufferState, init_buffer
-from one_to_many_gan_torch.device import compute_dtype, disable_tf32, select_device
+from one_to_many_gan_torch.device import (
+    compute_dtype,
+    disable_tf32,
+    select_device,
+    use_deterministic_kernels,
+)
 from one_to_many_gan_torch.models import (
     Discriminator,
     Generator,
@@ -35,7 +40,10 @@ class Models:
     generator first, then mapping; ``convert.from_jax_params`` overwrites
     them with trained weights. ``device`` None means CUDA, and raises
     without a GPU (``device.select_device``). A float32 config on CUDA
-    turns TF32 off for the process (``device.disable_tf32``).
+    turns TF32 off for the process (``device.disable_tf32``);
+    ``training.deterministic_cuda_kernels = true`` makes the process's
+    kernels deterministic (``device.use_deterministic_kernels``), so that
+    two runs from one seed give the same bits.
     """
 
     def __init__(self, config: Config, *, device: str | torch.device | None = None,
@@ -46,6 +54,8 @@ class Models:
         self.dtype = compute_dtype(config)
         if self.device.type == "cuda" and self.dtype == torch.float32:
             disable_tf32()
+        if config["training"]["deterministic_cuda_kernels"]:
+            use_deterministic_kernels()
         self.image_size = tuple(data["image_size"])
         self.channels = data["image_channels"]
         self.w_dim = arch["w_dim"]

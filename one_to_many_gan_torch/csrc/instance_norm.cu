@@ -17,7 +17,8 @@
 // copy covers the range rounded out to 16 bytes, so a range that starts
 // mid-vector (hw no multiple of 8 in bf16, or a view at an odd offset)
 // still moves as aligned 16-byte transfers. The chunks are summed as they
-// land (pass 1, the mean); the centred variance (pass 2) and the
+// land (pass 1: the sum, and in bfloat16 the sum of squares too); in
+// float32 the centred variance (pass 2) and in both dtypes the
 // normalise-and-write pass (3) read the on-chip copy. The output leaves
 // as 16-byte stores, with scalar stores only where a plane's first or
 // last 16 bytes are shared with a neighbour. The host-side wrapper
@@ -39,12 +40,17 @@
 // few to fill the 132 SMs, measured faster than a cluster (PERF.md, PR 5).
 // Sums run in float32 in a fixed order (per-thread, warp shuffles, warps
 // in order, cluster ranks in order), with no atomics: the output is
-// bitwise the same from run to run. The variance is the centred sum of
-// squares over the on-chip copy (not E[x^2] - E[x]^2), as the float32
-// oracle (ops/norm.py::instance_norm) computes it. In bfloat16 the
-// normalisation rounds as ops/norm.py's bf16 path does: mean and rstd
-// rounded to bf16, then bf16(bf16(x - mean) * rstd). A NaN passes
-// through the ReLU.
+// bitwise the same from run to run. The variance follows the function
+// each dtype replaces. float32: the centred sum of squares over the
+// on-chip copy, as the float32 oracle (ops/norm.py::instance_norm) and
+// the JAX model path's float32 branch compute it. bfloat16: the moment
+// statistics of the Pallas body (_in_kernel) and of the JAX model path's
+// bf16 branch (ops/norm.py), var = max(E[x^2] - E[x]^2, 0) in float32,
+// the squares summed in pass 1 beside the values (a bf16 value's square
+// is exact in float32); the two differ where |mean| / std is of order
+// 10^2 or more. In bfloat16 the normalisation rounds as ops/norm.py's
+// bf16 path does: mean and rstd rounded to bf16, then
+// bf16(bf16(x - mean) * rstd). A NaN passes through the ReLU.
 //
 // The bulk copy reads up to 15 bytes before and after a block's range,
 // inside the 16-byte-aligned chunks that hold its first and last
@@ -78,6 +84,7 @@ struct Vec;
 template <>
 struct Vec<float> {
   static constexpr int N = 4;
+  static constexpr bool kMoments = false;  // centred variance
   __device__ __forceinline__ static void unpack(const uint4& q, float* v) {
     v[0] = __uint_as_float(q.x);
     v[1] = __uint_as_float(q.y);
@@ -96,6 +103,7 @@ struct Vec<float> {
 template <>
 struct Vec<__nv_bfloat16> {
   static constexpr int N = 8;
+  static constexpr bool kMoments = true;  // E[x^2] - E[x]^2
   // bf16 is the high half of a float32: element 2k is the low half of
   // word k (little-endian), element 2k+1 the high half.
   __device__ __forceinline__ static void unpack(const uint4& q, float* v) {
@@ -288,40 +296,56 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int gwarps = gsize / 32;
   const float count = static_cast<float>(hw);
 
-  // pass 1: the sum, each chunk as it lands
-  float acc = 0.f;
+  // pass 1: the sum (bfloat16: and the sum of squares), each chunk as it
+  // lands
+  constexpr bool kMoments = Vec<T>::kMoments;
+  float acc = 0.f, acc_sq = 0.f;
   constexpr int kChunkVecs = kChunkBytes / 16;
   for (int c = 0; c < nchunks; ++c) {
     mbar_wait(&bars[c]);
     if (active) {
       visit(s, max(qlo, c * kChunkVecs), min(qhi, (c + 1) * kChunkVecs), gt, gsize, lo, hi,
-            [&](float v) { acc += v; });
+            [&](float v) {
+              acc += v;
+              if (kMoments) acc_sq = __fadd_rn(acc_sq, __fmul_rn(v, v));
+            });
     }
   }
   float total = group_sum(acc, red_sum, w0, gwarps);
+  float total_sq = kMoments ? group_sum(acc_sq, red_sq, w0, gwarps) : 0.f;
   cg::cluster_group cluster = cg::this_cluster();
   if (cluster_size > 1) {
-    if (threadIdx.x == 0) cl_part[0] = total;
+    if (threadIdx.x == 0) {
+      cl_part[0] = total;
+      cl_part[1] = total_sq;
+    }
     cluster.sync();
     total = cluster_sum(cluster, &cl_part[0], cluster_size);
+    if (kMoments) total_sq = cluster_sum(cluster, &cl_part[1], cluster_size);
   }
   const float mean = total / count;
 
-  // pass 2: the centred sum of squares, from the on-chip copy
-  acc = 0.f;
-  if (active) {
-    visit(s, qlo, qhi, gt, gsize, lo, hi, [&](float v) {
-      const float d = v - mean;
-      acc += d * d;
-    });
+  float var;
+  if (kMoments) {
+    // E[x^2] - E[x]^2, each step rounded (no FMA), clamped at 0
+    var = fmaxf(__fsub_rn(total_sq / count, __fmul_rn(mean, mean)), 0.f);
+  } else {
+    // pass 2: the centred sum of squares, from the on-chip copy
+    acc = 0.f;
+    if (active) {
+      visit(s, qlo, qhi, gt, gsize, lo, hi, [&](float v) {
+        const float d = v - mean;
+        acc += d * d;
+      });
+    }
+    total = group_sum(acc, red_sq, w0, gwarps);
+    if (cluster_size > 1) {
+      if (threadIdx.x == 0) cl_part[1] = total;
+      cluster.sync();
+      total = cluster_sum(cluster, &cl_part[1], cluster_size);
+    }
+    var = total / count;
   }
-  total = group_sum(acc, red_sq, w0, gwarps);
-  if (cluster_size > 1) {
-    if (threadIdx.x == 0) cl_part[1] = total;
-    cluster.sync();
-    total = cluster_sum(cluster, &cl_part[1], cluster_size);
-  }
-  const float var = total / count;
   const float m = Vec<T>::round(mean);
   const float r = Vec<T>::round(rsqrtf(var + eps));
 

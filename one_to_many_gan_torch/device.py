@@ -7,7 +7,14 @@ CPU silently.
 
 from __future__ import annotations
 
+import os
+
 import torch
+
+# cuBLAS's workspace for reproducible results (NVIDIA's cuBLAS docs, "Results
+# reproducibility"): PyTorch refuses cuBLAS under deterministic algorithms
+# without it.
+CUBLAS_WORKSPACE_CONFIG = ":4096:8"
 
 
 def select_device(device: str | torch.device | None = None) -> torch.device:
@@ -42,3 +49,27 @@ def disable_tf32() -> None:
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def set_cublas_workspace() -> None:
+    """Set ``CUBLAS_WORKSPACE_CONFIG`` to ``:4096:8`` unless it is set.
+    PyTorch fixes cuBLAS's workspace when it first uses cuBLAS, so an entry
+    point that will train deterministically calls this before it touches
+    CUDA."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE_CONFIG)
+
+
+def use_deterministic_kernels() -> None:
+    """Make every kernel of the process deterministic, for
+    ``training.deterministic_cuda_kernels = true``:
+    ``torch.use_deterministic_algorithms(True)`` (an op with no
+    deterministic implementation then raises instead of varying quietly),
+    ``cudnn.deterministic`` True, ``cudnn.benchmark`` False and
+    ``set_cublas_workspace``. The port's own kernels are deterministic in
+    every mode (the warp backward gathers, the instance norm sums in a fixed
+    order, the pads fold their gradient with slices). Process-wide, like
+    ``disable_tf32``; nothing turns it off again."""
+    set_cublas_workspace()
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False

@@ -8,8 +8,10 @@ Replaces the JAX package's TPU kernel ``ops/pallas/instance_norm.py``
 Bound: bytes. The least time is one read of the input and one write of
 the output at the card's memory rate; the kernel does a few flops per
 element. It reads each plane from device memory once into shared memory
-(bulk copies of aligned 16-byte chunks), takes the mean and the centred
-variance there and writes the output with 16-byte stores. ``plan`` picks
+(bulk copies of aligned 16-byte chunks), takes its statistics there (the
+centred variance in float32; in bfloat16 the moment form
+``max(E[x^2] - E[x]^2, 0)`` of the Pallas kernel and of the plain
+version) and writes the output with 16-byte stores. ``plan`` picks
 the block layout from ``(planes, hw, dtype)``: several small planes per
 block (``packed``), one plane per block (``resident``), or one plane per
 thread-block cluster whose blocks each hold a slice (``cluster``); the

@@ -9,23 +9,33 @@ the TPU kernels contract dense tent matrices.
 Bound: bytes. The forward's least time is one read of the image, the two
 coordinate planes and the widths, and one write of the output, at the
 card's memory rate; the backward's the same with the cotangent in place
-of the image. Both do 4 to 81 multiply-adds per pixel, one thread per
-pixel. Every block of the kernels lies in one image, reads its widths
-once and runs a fully unrolled loop of ``tap_count`` taps per axis (the
-longer axis's) from ``first_tap(c, width)``, each weight computed once.
+of the image. Both do 4 to 81 multiply-adds per pixel. Every block of the
+kernels lies in one image, reads its widths once and runs a fully
+unrolled loop of ``tap_count`` taps per axis (the longer axis's) from
+``first_tap(c, width)``, each weight computed once.
+
+The forward runs one thread per output pixel. The backward gathers: each
+pixel of ``dimg`` sums its terms in a fixed order, with no atomics, so
+two launches give the same bits (and it runs under
+``torch.use_deterministic_algorithms(True)``). A pre-pass fits each
+image's coordinates to an affine hint and measures their deviation from
+it; each block of the gather stages the output pixels that can reach its
+32x32 tile of ``dimg`` (the tile mapped back through the hint, widened
+by the tents and the deviation) and each thread sums a 2x2 quad over its
+box of them. Any coordinates stay exact: far from affine they are
+merely slow.
 
 ``warp`` is differentiable in the images only: coordinates and widths
 come from the augmentation's draws and get no gradient (the JAX package
 gives them zero cotangents). ``warp`` and ``warp_bwd`` take the plain
 versions only for tensors on the CPU; for CUDA tensors they launch the
 kernels or raise. ``warp.launches`` and ``warp_bwd.launches`` count the
-kernels' launches.
+kernels' launches (one per call of ``warp_bwd``: its pre-pass and gather).
 """
 
 from __future__ import annotations
 
 import ctypes
-import warnings
 
 import torch
 
@@ -40,17 +50,21 @@ AA_MIN_TAPS = 3
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Elements of the plain versions' largest intermediate per row chunk.
 _PLAIN_BUDGET = 2**24
+# The backward's pre-pass: one block per HINT_PIXELS pixels of an image,
+# at most MAX_HINT_BLOCKS (csrc/warp.cu: kMaxHintBlocks), each thread of
+# a block two batches of 4 (PERF.md, the gather's sweep).
+HINT_PIXELS = 2048
+MAX_HINT_BLOCKS = 128
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("warp")
-    for fn, n_ptr in ((lib.otm_warp_fwd, 6), (lib.otm_warp_bwd, 7)):
-        fn.argtypes = [
-            *[ctypes.c_void_p] * n_ptr,
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
+    dims = [ctypes.c_longlong] * 3
+    lib.otm_warp_fwd.argtypes = [*[ctypes.c_void_p] * 6, *dims, *[ctypes.c_int] * 3,
+                                 ctypes.c_void_p]
+    lib.otm_warp_bwd.argtypes = [*[ctypes.c_void_p] * 7, *dims, *[ctypes.c_int] * 4,
+                                 ctypes.c_void_p]
+    lib.otm_warp_fwd.restype = lib.otm_warp_bwd.restype = ctypes.c_int
     lib.otm_cuda_error_string.argtypes = [ctypes.c_int]
     lib.otm_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -93,6 +107,11 @@ def _tent(coords: torch.Tensor, n: int, width: torch.Tensor, antialias: bool) ->
     norm = k.double().sum(dim=-1, keepdim=True).float()
     k = k / norm.clamp_min(1e-8)
     return k[..., RADIUS : RADIUS + n]
+
+
+def hint_blocks(h: int, w: int) -> int:
+    """Blocks per image of the backward's pre-pass for [h, w] images."""
+    return max(1, min(MAX_HINT_BLOCKS, -(-h * w // HINT_PIXELS)))
 
 
 def _row_chunk(b: int, h: int, w: int) -> int:
@@ -222,35 +241,31 @@ def warp_bwd(
     """The image cotangent of ``warp`` for the output cotangent ``dout``
     ``[B,H,W]``, in ``dout``'s dtype.
 
-    CPU tensor: the plain version. CUDA tensor: the kernel, which takes a
-    contiguous float32 or bfloat16 ``dout`` and contiguous float32
-    coordinates and widths; anything else raises. The kernel adds its
-    terms with float32 atomics, whose order varies from run to run, so it
-    raises while ``torch.use_deterministic_algorithms(True)`` holds (and
-    warns in its ``warn_only`` mode), as PyTorch's ``grid_sample`` backward
-    does.
+    CPU tensor: the plain version. CUDA tensor: the pre-pass and the
+    gather, which take a contiguous float32 or bfloat16 ``dout`` and
+    contiguous float32 coordinates and widths; anything else raises. The
+    gather sums each pixel's terms in a fixed order, so two calls give the
+    same bits. With ``antialias``, an image with a NaN coordinate, or a
+    width the dispatch refuses (``tap_count`` 0), gets a NaN cotangent over
+    the whole image (the plain version computes any width).
     """
     _check_device("warp_bwd", dout)
     if dout.device.type == "cpu":
         return warp_bwd_plain(dout, sx, sy, width_x, width_y, antialias=antialias)
     _check_args("warp_bwd", dout, sx, sy, width_x, width_y)
-    if torch.are_deterministic_algorithms_enabled():
-        msg = ("warp_bwd: the CUDA kernel adds float32 terms with atomics in an order "
-               "that varies from run to run; it has no deterministic implementation")
-        if not torch.is_deterministic_algorithms_warn_only_enabled():
-            raise RuntimeError(msg)
-        warnings.warn(msg, stacklevel=2)
     b, h, w = dout.shape
-    # The float32 accumulator the atomics add into; in float32 it is dimg.
-    acc = torch.empty(dout.shape, dtype=torch.float32, device=dout.device)
-    dimg = acc if dout.dtype == torch.float32 else torch.empty_like(dout)
+    blocks = hint_blocks(h, w)
+    # the pre-pass's record per image: the hint, then each block's maxima;
+    # written before it is read
+    rec = torch.empty((b, 12 + 3 * blocks), dtype=torch.float64, device=dout.device)
+    dimg = torch.empty_like(dout)
     lib = _lib()
     with torch.cuda.device(dout.device):
         stream = torch.cuda.current_stream(dout.device).cuda_stream
         err = lib.otm_warp_bwd(
             dout.data_ptr(), sx.data_ptr(), sy.data_ptr(), width_x.data_ptr(),
-            width_y.data_ptr(), acc.data_ptr(), dimg.data_ptr(), b, h, w,
-            _DTYPE_CODES[dout.dtype], int(antialias), RADIUS, stream,
+            width_y.data_ptr(), rec.data_ptr(), dimg.data_ptr(), b, h, w,
+            _DTYPE_CODES[dout.dtype], int(antialias), RADIUS, blocks, stream,
         )
     _raise_on(lib, err, "warp_bwd")
     warp_bwd.launches += 1
@@ -317,7 +332,7 @@ def warp_bwd_sum_bound(
 ) -> torch.Tensor:
     """A bound [B,H,W] (float64) on how far the backward kernel's float32
     sum may lie from the exact ``dimg``, proven for every order of its
-    atomics: ``(n + 2) * 2^-24 * s``, where ``n`` counts the pixel's terms
+    terms: ``(n + 2) * 2^-24 * s``, where ``n`` counts the pixel's terms
     of nonzero weight and ``s`` is the sum of their magnitudes. Each of
     the ``n - 1`` rounded adds errs by at most 2^-24 of a partial sum (at
     most ``s``), and each term's two float32 products by 2^-24 of the term

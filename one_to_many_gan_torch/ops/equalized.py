@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from one_to_many_gan_torch.ops.pad import pad as pad_op
+
 
 def he_constant(fan_in: int, dtype: torch.dtype) -> float:
     """``1/sqrt(fan_in)`` rounded to ``dtype`` (exact as a Python float)."""
@@ -27,13 +29,14 @@ def he_constant(fan_in: int, dtype: torch.dtype) -> float:
 
 
 def pad2d(x: torch.Tensor, pad: int, mode: str) -> torch.Tensor:
-    """Pad H and W of an NCHW tensor by ``pad`` with zeros or reflection."""
+    """Pad H and W of an NCHW tensor by ``pad`` with zeros or reflection
+    (``ops/pad.py``: a deterministic backward)."""
     if pad == 0:
         return x
     if mode == "zero":
         return F.pad(x, (pad, pad, pad, pad))
     if mode == "reflect":
-        return F.pad(x, (pad, pad, pad, pad), mode="reflect")
+        return pad_op(x, (pad, pad, pad, pad), "reflect")
     msg = f"unknown pad mode {mode}"
     raise ValueError(msg)
 

@@ -30,6 +30,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from one_to_many_gan_torch.ops.pad import pad
+
 _BLUR = (0.25, 0.5, 0.25)
 _BLUR_HALVE = (0.125, 0.375, 0.375, 0.125)
 _DOUBLE_BLUR = (1 / 16, 5 / 16, 10 / 16, 10 / 16, 5 / 16, 1 / 16)
@@ -51,8 +53,9 @@ def _taps(
 
 
 def _edge_pad(x: torch.Tensor, dim: int) -> torch.Tensor:
-    pad = (0, 0, 1, 1) if dim == 2 else (1, 1, 0, 0)
-    return F.pad(x, pad, mode="replicate")
+    """1-pixel replication pad along H (dim 2) or W (dim 3), with a
+    deterministic backward (``ops/pad.py``)."""
+    return pad(x, (0, 0, 1, 1) if dim == 2 else (1, 1, 0, 0), "replicate")
 
 
 def _fir(x: torch.Tensor, taps: tuple[float, ...], dim: int, stride: int = 1) -> torch.Tensor:

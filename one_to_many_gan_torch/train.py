@@ -12,7 +12,8 @@ starting at ``--ada-p``. Prints one JSON line per step: the metrics of
 both phases, whether it was a path step (``step % tpu.path_interval ==
 0``), the buffer's and the ADA window's counts, and the step's wall time
 (ms, synchronised on CUDA). Runs on ``cuda`` unless ``--device cpu``;
-raises without a GPU.
+raises without a GPU. With ``training.deterministic_cuda_kernels = true``
+two runs with one seed give the same bits (``device.use_deterministic_kernels``).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 
 from one_to_many_gan_torch.augment import init_ada_state
 from one_to_many_gan_torch.config import Config, load_config
+from one_to_many_gan_torch.device import set_cublas_workspace
 from one_to_many_gan_torch.core.state import Models, TrainState, init_train_state
 from one_to_many_gan_torch.core.train_step import (
     Batches,
@@ -63,6 +65,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     config = load_config(args.config)
+    if config["training"]["deterministic_cuda_kernels"]:
+        set_cublas_workspace()  # before anything touches CUDA
     models, state, generator = setup(
         config, seed=args.seed, ada_p=args.ada_p, device=args.device
     )

@@ -23,6 +23,7 @@ import torch
 
 from one_to_many_gan_torch import train
 from one_to_many_gan_torch.config import Config, load_config
+from one_to_many_gan_torch.device import set_cublas_workspace
 from one_to_many_gan_torch.core.state import Models, TrainState
 from one_to_many_gan_torch.core.train_step import draw_d_phase, make_d_phase, synthetic_batch
 
@@ -51,6 +52,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     config = load_config(args.config)
+    if config["training"]["deterministic_cuda_kernels"]:
+        set_cublas_workspace()  # before anything touches CUDA
     models, state, d_phase, generator = setup(
         config, seed=args.seed, ada_p=args.ada_p, device=args.device
     )

@@ -1,8 +1,9 @@
-"""Sweep the design choices of the port's two redesigned CUDA kernels on one
+"""Sweep the design choices of the port's redesigned CUDA kernels on one
 GPU, each alternative timed against the others in one run, cold L2.
 
     python3 scripts/sweep_torch_kernels.py in-plans
     python3 scripts/sweep_torch_kernels.py warp-variants
+    python3 scripts/sweep_torch_kernels.py gather-variants
 
 ``in-plans``: the instance norm at the serving, D-step and fused-step sites
 under every block layout the kernel's entry takes (planes per block,
@@ -14,7 +15,17 @@ plain version.
 (registers uncapped, 256-thread blocks, 4 pixels per thread, IEEE divisions
 in place of the corrected reciprocal), built in parallel with the port's
 nvcc flags and timed against the source as it is; every variant's output is
-held bitwise to the source's. Builds go to ``build/sweep/``; results to
+held bitwise to the source's.
+
+``gather-variants``: copies of ``csrc/warp.cu`` with one choice of the
+warp backward's gather changed each (the tile's shape, blocks per SM, the
+staging buffer's size), built in parallel and timed
+against the source on ADA draws at p = 0.9; every variant is held to the
+plain version (a variant may chunk a region elsewhere, so its sums may
+be ordered otherwise). Variants named ``x_*`` leave out one part of the
+work (the summing loop, the tap arithmetic of the staged pixels, every
+tile), compute wrong results and are timed only, to show where the
+gather's time goes. Builds go to ``build/sweep/``; results to
 ``chiprun_out/sweep_<what>.json``. Needs a CUDA card and nvcc.
 """
 
@@ -124,6 +135,32 @@ def _warp_sources(src: str) -> dict:
     }
 
 
+def _gather_sources(src: str) -> dict:
+    """The source and one copy per alternative of the gather's constants."""
+
+    def swap(text: str, old: str, new: str) -> str:
+        cs.check(old in text, f"gather variant: {old!r} not in the source")
+        return text.replace(old, new)
+
+    taps = ("          const int x0 = axis_taps<NT, kAA>(__ldg(sx + p), wdx, rwdx, w, r, wx);\n"
+            "          const int y0 = axis_taps<NT, kAA>(__ldg(sy + p), wdy, rwdy, h, r, wy);\n")
+    loop = "        for (int py = ya; py <= yb; ++py) {\n"
+    return {
+        "source": src,
+        "tile32x16": swap(src, "constexpr int kTileY = 32;", "constexpr int kTileY = 16;"),
+        "blocks_per_sm3": swap(src, "kGatherBlocksPerSM = 4;", "kGatherBlocksPerSM = 3;"),
+        "stage40k_5_per_sm": swap(swap(src, "kStageBytes = 47104;", "kStageBytes = 40960;"),
+                                  "kGatherBlocksPerSM = 4;", "kGatherBlocksPerSM = 5;"),
+        "hint_unroll8": swap(src, "kHintUnroll = 4;", "kHintUnroll = 8;"),
+        # timing only (wrong results): where the gather's time goes
+        "x_no_sum_loop": swap(src, loop, "        for (int py = ya; py <= yb && false; ++py) {\n"),
+        "x_no_tap_math": swap(src, taps, "          const int x0 = px - 1, y0 = py - 1;\n"
+                              "#pragma unroll\n          for (int t = 0; t < NT; ++t) "
+                              "wx[t] = wy[t] = __ldg(sx + p) + __ldg(sy + p);\n"),
+        "x_no_tiles": swap(src, "      dispatch(nx > ny ? nx : ny, g);", "      (void)g;"),
+    }
+
+
 def _build_all(sources: dict) -> dict:
     from one_to_many_gan_torch.ops.cuda import build
 
@@ -196,11 +233,64 @@ def warp_variants(torch) -> list:
             *results]
 
 
+def gather_variants(torch) -> list:
+    from one_to_many_gan_torch.ops.cuda.warp import RADIUS, hint_blocks, warp_bwd_plain
+
+    built = _build_all(_gather_sources((ROOT / "one_to_many_gan_torch/csrc/warp.cu").read_text()))
+    for name, info in built.items():
+        cs.log(f"built {name} in {info['build_s']:.1f} s; " + "; ".join(info["ptxas"][-8:]))
+    libs = {}
+    for name, info in built.items():
+        lib = ctypes.CDLL(str(info["lib"]))
+        lib.otm_warp_bwd.argtypes = [*[ctypes.c_void_p] * 7, ctypes.c_longlong,
+                                     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.otm_warp_bwd.restype = ctypes.c_int
+        libs[name] = lib
+    gen = torch.Generator("cuda").manual_seed(7)
+    flush = torch.zeros(128 * 2**20, dtype=torch.uint8, device="cuda")
+    results = []
+    for (b, h, w), dtype_name, aa in WARP_CASES:
+        dtype = getattr(torch, dtype_name)
+        _, sx, sy, wx, wy = cs._warp_inputs(torch, gen, b, h, w, dtype, aa)
+        dout = torch.randn((b, h, w), generator=gen, device="cuda").to(dtype)
+        blocks = hint_blocks(h, w)
+
+        def call(t, lib, sx=sx, sy=sy, wx=wx, wy=wy, dims=(b, h, w), aa=aa, blocks=blocks):
+            rec = torch.empty((dims[0], 12 + 3 * blocks), dtype=torch.float64, device="cuda")
+            out = torch.empty_like(t)
+            err = lib.otm_warp_bwd(t.data_ptr(), sx.data_ptr(), sy.data_ptr(), wx.data_ptr(),
+                                   wy.data_ptr(), rec.data_ptr(), out.data_ptr(), *dims,
+                                   0 if t.dtype == torch.float32 else 1, int(aa), RADIUS,
+                                   blocks, torch.cuda.current_stream().cuda_stream)
+            cs.check(err == 0, f"gather variant launch failed: {err}")
+            return out
+
+        want = warp_bwd_plain(dout, sx, sy, wx, wy, antialias=aa)
+        errs = {}
+        for name, lib in libs.items():
+            if name.startswith("x_"):
+                continue
+            got = call(dout, lib)
+            torch.cuda.synchronize()
+            errs[name] = cs._check_bwd(torch, got, want, dout, (sx, sy, wx, wy), aa,
+                                       f"gather variant {name}")["max_abs_err"]
+        fns = {name: (lambda t, lib=lib: call(t, lib)) for name, lib in libs.items()}
+        times = cs.time_cold_ms(torch, fns, dout, flush, reps=30)
+        cs.log(f"warp_bwd [{b},{h},{w}] {dtype_name} aa={int(aa)}: " + " ".join(
+            f"{k}={v:.4f}" for k, v in sorted(times.items(), key=lambda kv: kv[1])))
+        results.append({"case": [b, h, w, dtype_name, aa], "ms": times, "max_abs_err": errs})
+    return [{name: {"build_s": i["build_s"], "ptxas": i["ptxas"]} for name, i in built.items()},
+            *results]
+
+
 def main() -> int:
     import torch
 
     what = sys.argv[1] if len(sys.argv) > 1 else ""
-    if what not in ("in-plans", "warp-variants"):
+    sweeps = {"in-plans": in_plans, "warp-variants": warp_variants,
+              "gather-variants": gather_variants}
+    if what not in sweeps:
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -209,7 +299,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     cs.log(smi)
-    results = in_plans(torch) if what == "in-plans" else warp_variants(torch)
+    results = sweeps[what](torch)
     OUT.mkdir(exist_ok=True)
     (OUT / f"sweep_{what}.json").write_text(
         json.dumps({"nvidia_smi": smi, "results": results}, indent=1, default=str))

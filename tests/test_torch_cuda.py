@@ -15,9 +15,10 @@ float64 and rounds once, the kernel sums in float32, which errs by at
 most (nx + ny) * 2^-24 * max|x| * 1.03 for nx, ny <= 12 taps per axis
 whose weights sum to at most 1.03: 25 * 2^-24 < 2^-19. That term is more
 than a bf16 ulp where the taps cancel to an output near 0. The warp's
-backward in float32 is held to the same 2e-6, and in bfloat16 to one
-bfloat16 ulp plus ``warp_bwd_sum_bound``, a proven bound on the error of
-the kernel's float32 atomic sums in any order. The instance
+backward (a pre-pass and a gather) in float32 is held to the same 2e-6,
+and in bfloat16 to one bfloat16 ulp plus ``warp_bwd_sum_bound``, a proven
+bound on the error of the kernel's float32 sums in any order; under a 4x
+magnification and on random coordinates, float32 to 2e-6 plus that bound. The instance
 norm's gradient on the card is held to the plain version's autograd
 gradient at 1e-4 relative to its largest entry in float32 (the two sum
 over the plane in different orders, and the closed form and autograd's
@@ -27,10 +28,12 @@ plain chain to bfloat16; 0.016 measured on the CPU on gradients of
 magnitude 2).
 """
 
+import math
+
 import pytest
 import torch
 
-import math
+import chip_smoke
 
 from one_to_many_gan_torch.augment.pipeline import (
     draw_augment,
@@ -189,6 +192,33 @@ def test_instance_norm_gradient_on_the_card_matches_the_plain_version(cuda, dtyp
     assert got.abs().max().item() > 0
     tol = 1e-4 * want.abs().max().item() if dtype == torch.float32 else TOL[dtype]
     assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("layout", ["plan", "resident", "packed2", "packed8", "cluster2",
+                                    "cluster4", "cluster8"])
+def test_instance_norm_bf16_follows_the_moment_formula_at_high_mean(cuda, layout):
+    """In bfloat16 the kernel takes max(E[x^2] - E[x]^2, 0), as its plain
+    version and the JAX package's bf16 paths do. ``chip_smoke.high_mean_planes``
+    (|mean| / std = 1258, sums exact in float32 in any order) is where the
+    centred variance gives outputs 0.125 away: the kernel matches the plain
+    version there, in every layout."""
+    x = chip_smoke.high_mean_planes(torch, 16, "cuda")
+    planes, hw = x.shape[1], x.shape[2] * x.shape[3]
+    layouts = {
+        "resident": in_module.Plan("resident", 1, 1, 256, in_module._range_smem(hw, 2), planes),
+        **{f"packed{k}": in_module.Plan("packed", k, 1, 256, in_module._range_smem(k * hw, 2),
+                                        -(-planes // k)) for k in (2, 8)},
+        **{f"cluster{k}": in_module.Plan("cluster", 1, k, 256,
+                                         in_module._range_smem(-(-hw // k), 2), planes * k)
+           for k in (2, 4, 8)},
+    }
+    got = (fused_instance_norm(x) if layout == "plan"
+           else in_module._launch(x, False, 1e-5, layouts[layout]))
+    want = instance_norm_plain(x)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= TOL[torch.bfloat16]
+    centred = chip_smoke.centred_bf16_plain(torch, x)
+    assert (centred.float() - want.float()).abs().max().item() > TOL[torch.bfloat16]
 
 
 def _warp_inputs(gen, b, h, w, *, minify: float = 1.0):
@@ -405,18 +435,96 @@ def test_warp_autograd_on_the_card(cuda, dtype):
     assert (cpu != 0).any()
 
 
-def test_warp_bwd_refuses_deterministic_mode(cuda):
-    dout = torch.randn((1, 8, 8), generator=cuda, device="cuda")
-    c = torch.rand((1, 8, 8), generator=cuda, device="cuda") * 8
-    ones = torch.ones(1, device="cuda")
+def test_warp_bwd_runs_in_deterministic_mode_and_repeats_bitwise(cuda):
+    """The gather sums each pixel's terms in a fixed order: it runs under
+    ``torch.use_deterministic_algorithms(True)``, and every launch gives the
+    same bits as any other."""
+    b, h, w = 4, 64, 64
+    sx, sy, g = _warp_inputs(cuda, b, h, w)
+    wx, wy = tent_widths(g, antialias=True)
+    dout = torch.randn((b, h, w), generator=cuda, device="cuda").to(torch.bfloat16)
+    first = warp_bwd(dout, sx, sy, wx, wy, antialias=True)
     before = warp_bwd.launches
     try:
         torch.use_deterministic_algorithms(True)
-        with pytest.raises(RuntimeError, match="no deterministic implementation"):
-            warp_bwd(dout, c, c, ones, ones, antialias=True)
+        repeats = [warp_bwd(dout, sx, sy, wx, wy, antialias=True) for _ in range(3)]
     finally:
         torch.use_deterministic_algorithms(False)
-    assert warp_bwd.launches == before
+    assert warp_bwd.launches == before + 3
+    assert all(torch.equal(first, r) for r in repeats)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["rot90_flip", "magnify_4x", "width_cap"])
+def test_warp_bwd_gather_on_hard_transforms(cuda, case, dtype):
+    """``chip_smoke.gather_transforms``: rotations by multiples of 90
+    degrees and flips, 4x magnification (regions staged in chunks) and
+    4x minification with the widths at the cap (9 taps a side). Held as
+    ``chip_smoke._check_bwd`` holds them (float32: 2e-6 plus
+    ``warp_bwd_sum_bound``, since a magnified pixel sums tens of terms)."""
+    b, h, w = 8, 96, 80
+    name = "minify_4x" if case == "width_cap" else case
+    g = chip_smoke.gather_transforms(torch, cuda, b, h, w)[name]
+    sx, sy = source_coords(g, h, w)
+    wx, wy = tent_widths(g, antialias=True)
+    if case == "width_cap":
+        wx = wy = torch.full((b,), AA_MAX_WIDTH, device="cuda")
+    coords = (sx.contiguous(), sy.contiguous(), wx, wy)
+    dout = torch.randn((b, h, w), generator=cuda, device="cuda").to(dtype)
+    got = warp_bwd(dout, *coords, antialias=True)
+    again = warp_bwd(dout, *coords, antialias=True)
+    want = warp_bwd_plain(dout, *coords, antialias=True)
+    torch.cuda.synchronize()
+    assert got.abs().max().item() > 0 and torch.equal(got, again)
+    chip_smoke._check_bwd(torch, got, want, dout, coords, True, case)
+
+
+@pytest.mark.parametrize("antialias", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_warp_bwd_gather_exact_on_random_coordinates(cuda, dtype, antialias):
+    """Coordinates that are no affine map of the pixel grid (uniform random
+    at 8x8, over and past the frame): the measured deviation widens every
+    box toward the whole frame, and the result stays exact."""
+    b, h, w = 4, 8, 8
+    sx = torch.rand((b, h, w), generator=cuda, device="cuda") * (w + 4) - 2
+    sy = torch.rand((b, h, w), generator=cuda, device="cuda") * (h + 4) - 2
+    wx = 1.0 + 3.0 * torch.rand((b,), generator=cuda, device="cuda")
+    wy = 1.0 + 3.0 * torch.rand((b,), generator=cuda, device="cuda")
+    dout = torch.randn((b, h, w), generator=cuda, device="cuda").to(dtype)
+    got = warp_bwd(dout, sx, sy, wx, wy, antialias=antialias)
+    want = warp_bwd_plain(dout, sx, sy, wx, wy, antialias=antialias)
+    torch.cuda.synchronize()
+    assert got.abs().max().item() > 0
+    chip_smoke._check_bwd(torch, got, want, dout, (sx, sy, wx, wy), antialias, "random")
+
+
+def test_warp_bwd_nan_contract(cuda):
+    """With antialias, an image with a NaN coordinate, or a tent wider than
+    the dispatch takes, gets a NaN cotangent over the whole image (the
+    scatter this gather replaced put the NaN on pixel 0 only); the other
+    images' cotangents are unchanged. Without antialias a NaN position
+    weighs nothing (its tents are 0), as in the forward."""
+    b, h, w = 4, 32, 32
+    sx, sy, g = _warp_inputs(cuda, b, h, w)
+    wx, wy = tent_widths(g, antialias=True)
+    dout = torch.randn((b, h, w), generator=cuda, device="cuda")
+    clean = warp_bwd(dout, sx, sy, wx, wy, antialias=True)
+    nan_sx = sx.clone()
+    nan_sx[1, 3, 4] = float("nan")
+    wide = wx.clone()
+    wide[2] = torch.nextafter(torch.tensor(AA_MAX_WIDTH), torch.tensor(5.0)).item()
+    out = warp_bwd(dout, nan_sx, sy, wide, wy, antialias=True)
+    torch.cuda.synchronize()
+    assert out[1].isnan().all() and out[2].isnan().all()
+    assert torch.equal(out[0], clean[0]) and torch.equal(out[3], clean[3])
+    ones = torch.ones(b, device="cuda")
+    plain = warp_bwd(dout, sx, sy, ones, ones, antialias=False)
+    off = warp_bwd(dout, nan_sx, sy, ones, ones, antialias=False)
+    d_nan = dout.clone()
+    d_nan[1, 3, 4] = 0.0  # the NaN position's terms are 0
+    assert torch.isfinite(off).all()
+    assert torch.equal(off[1], warp_bwd(d_nan, sx, sy, ones, ones, antialias=False)[1])
+    assert torch.equal(off[0], plain[0])
 
 
 def test_warp_bwd_raises_instead_of_falling_back(cuda):

@@ -10,6 +10,9 @@ assigned exactly once; the taps against the dense tents of the plain
 version. No JAX.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -157,3 +160,199 @@ def test_warp_taps_cover_every_nonzero_tent_weight(n):
         # the loop is no longer than the support needs, plus one tap
         support = (k > 0).sum(dim=1)
         assert (support <= tap_count(wd) - 1).all()
+
+
+# ---- the warp backward's gather: a mirror of its box arithmetic
+
+_WARP_CU = (Path(__file__).resolve().parents[1] / "one_to_many_gan_torch/csrc/warp.cu").read_text()
+
+
+def _cu_constant(name: str) -> float:
+    """A constexpr of csrc/warp.cu, read from the source."""
+    return float(re.search(rf"constexpr \w+ {name} = ([0-9.e+-]+);", _WARP_CU).group(1))
+
+
+TILE_X, TILE_Y = int(_cu_constant("kTileX")), int(_cu_constant("kTileY"))
+QUAD = int(_cu_constant("kQuad"))
+REACH_SLACK, BOX_SLACK = 2.0**-18, _cu_constant("kBoxSlack")
+FLOAT_SLACK, FLOAT_REL = np.float32(2.0**-10), np.float32(2.0**-20)
+assert "kReachSlack = 0x1p-18;" in _WARP_CU
+assert "kFloatSlack = 0x1p-10f;" in _WARP_CU and "kFloatRel = 0x1p-20f;" in _WARP_CU
+f32 = np.float32
+
+
+def _box_range(c, r, n: int):
+    """The kernel's ``box_range`` (float64): [lo, hi] of [0, n) within
+    c -/+ (r + slack)."""
+    s = BOX_SLACK * (1.0 + np.abs(c) + r)
+    return np.clip(np.ceil(c - r - s), 0, n), np.clip(np.floor(c + r + s), -1, n - 1)
+
+
+def _box_range_f(c, r, n: int):
+    """The kernel's ``box_range_f`` (float32)."""
+    c, r = f32(c), f32(r)
+    s = FLOAT_SLACK + FLOAT_REL * (np.abs(c) + r)
+    return np.clip(np.ceil(c - r - s), 0, n), np.clip(np.floor(c + r + s), -1, n - 1)
+
+
+def _gather_frame(sx: np.ndarray, sy: np.ndarray, wdx: np.float32, wdy: np.float32) -> dict:
+    """One image's hint (float64, ``make_hint``), the coordinates'
+    deviation from it (float32, the pre-pass) and the reach (float64,
+    ``load_frame``), as the kernel computes them."""
+    h, w = sx.shape
+    ox, oy = float(sx[0, 0]), float(sy[0, 0])
+    axx = (float(sx[0, w - 1]) - ox) / (w - 1) if w > 1 else 0.0
+    ayx = (float(sy[0, w - 1]) - oy) / (w - 1) if w > 1 else 0.0
+    axy = (float(sx[h - 1, 0]) - ox) / (h - 1) if h > 1 else 0.0
+    ayy = (float(sy[h - 1, 0]) - oy) / (h - 1) if h > 1 else 0.0
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    window = ((sx > f32(-wdx - f32(1))) & (sx < f32(w) + wdx)
+              & (sy > f32(-wdy - f32(1))) & (sy < f32(h) + wdy))
+    with np.errstate(invalid="ignore", over="ignore"):
+        ex = np.abs(sx - (f32(axx) * xs + (f32(axy) * ys + f32(ox))))[window]
+        ey = np.abs(sy - (f32(ayx) * xs + (f32(ayy) * ys + f32(oy))))[window]
+        det = axx * ayy - axy * ayx
+    devx = float(ex.max()) if ex.size else 0.0
+    devy = float(ey.max()) if ey.size else 0.0
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        inv = np.array([[ayy, -axy], [-ayx, axx]]) / det
+    mag = 1 + abs(ox) + abs(oy) + (abs(axx) + abs(ayx)) * w + (abs(axy) + abs(ayy)) * h
+    reach = (float(wdx) + devx + REACH_SLACK * mag, float(wdy) + devy + REACH_SLACK * mag)
+    whole = not (det != 0 and np.isfinite([det, mag, *reach, *inv.ravel()]).all())
+    return {"o": (ox, oy), "a": np.array([[axx, axy], [ayx, ayy]]), "inv": inv, "reach": reach,
+            "whole": whole, "dev": (devx, devy)}
+
+
+def _gather_visits(f: dict, h: int, w: int, qx: np.ndarray, qy: np.ndarray):
+    """For taps q = (qx, qy) [Q]: which output pixels p [P = h*w] the
+    gather visits for q: inside its block's region (float64), staged (the
+    hint position of p, relative to the tile's corner, within the tile
+    widened by the reach; float32) and inside the box of q's thread (the
+    preimage of its quad, float32, from the tile corner's). -> bool [P, Q]."""
+    ys, xs = np.mgrid[0:h, 0:w]
+    px, py = xs.ravel()[:, None], ys.ravel()[:, None]
+    if f["whole"]:
+        return np.ones((h * w, qx.size), dtype=bool)
+    (ox, oy), (ex, ey), inv, a = f["o"], f["reach"], f["inv"], f["a"]
+    tx0, ty0 = qx // TILE_X * TILE_X, qy // TILE_Y * TILE_Y
+    tx1, ty1 = np.minimum(tx0 + TILE_X, w) - 1, np.minimum(ty0 + TILE_Y, h) - 1
+    cx, cy = 0.5 * (tx0 + tx1) - ox, 0.5 * (ty0 + ty1) - oy
+    hx, hy = 0.5 * (tx1 - tx0) + ex, 0.5 * (ty1 - ty0) + ey
+    rx0, rx1 = _box_range(inv[0, 0] * cx + inv[0, 1] * cy,
+                          abs(inv[0, 0]) * hx + abs(inv[0, 1]) * hy, w)
+    ry0, ry1 = _box_range(inv[1, 0] * cx + inv[1, 1] * cy,
+                          abs(inv[1, 0]) * hx + abs(inv[1, 1]) * hy, h)
+    region = (rx0 <= px) & (px <= rx1) & (ry0 <= py) & (py <= ry1)
+    # the staging test, float32 from the region's corner
+    h0x = f32(ox + a[0, 0] * rx0 + a[0, 1] * ry0 - tx0)
+    h0y = f32(oy + a[1, 0] * rx0 + a[1, 1] * ry0 - ty0)
+    ux, uy = f32(px - rx0), f32(py - ry0)
+    stx = h0x + (f32(a[0, 0]) * ux + f32(a[0, 1]) * uy)
+    sty = h0y + (f32(a[1, 0]) * ux + f32(a[1, 1]) * uy)
+    fex, fey = f32(ex), f32(ey)
+    fex, fey = (np.nextafter(v, f32(np.inf)) if float(v) < r else v
+                for v, r in ((fex, ex), (fey, ey)))
+    mx, my = FLOAT_SLACK + FLOAT_REL * np.abs(stx), FLOAT_SLACK + FLOAT_REL * np.abs(sty)
+    staged = ((stx >= -fex - mx) & (stx <= f32(tx1 - tx0) + fex + mx)
+              & (sty >= -fey - my) & (sty <= f32(ty1 - ty0) + fey + my))
+    # the box of q's thread (its QUAD x QUAD quad), float32 from the tile
+    # corner's preimage
+    dx, dy = tx0 - ox, ty0 - oy
+    c0x, c0y = f32(inv[0, 0] * dx + inv[0, 1] * dy), f32(inv[1, 0] * dx + inv[1, 1] * dy)
+    half = 0.5 * (QUAD - 1)
+    dqx = f32((qx - tx0) // QUAD * QUAD + half)
+    dqy = f32((qy - ty0) // QUAD * QUAD + half)
+    fi = inv.astype(np.float32)
+    bx = np.nextafter(f32(abs(inv[0, 0]) * (ex + half) + abs(inv[0, 1]) * (ey + half)), f32(9e9))
+    by = np.nextafter(f32(abs(inv[1, 0]) * (ex + half) + abs(inv[1, 1]) * (ey + half)), f32(9e9))
+    bx0, bx1 = _box_range_f(c0x + (fi[0, 0] * dqx + fi[0, 1] * dqy), bx, w)
+    by0, by1 = _box_range_f(c0y + (fi[1, 0] * dqx + fi[1, 1] * dqy), by, h)
+    own = (bx0 <= px) & (px <= bx1) & (by0 <= py) & (py <= by1)
+    return own & region & staged
+
+
+def _gather_cases() -> dict:
+    """name -> (sx, sy, width_x, width_y, antialias): ADA draws at p = 1
+    (their rotations, flips, scalings and translations), and
+    ``chip_smoke.gather_transforms``' rotations by multiples of 90 degrees
+    with and without the x-flip, 4x minification (tents to the width cap)
+    and 4x magnification, each with and without antialias; and random
+    coordinates."""
+    from one_to_many_gan_torch.augment.pipeline import (
+        draw_augment,
+        geometric_matrix,
+        source_coords,
+        tent_widths,
+    )
+
+    b, h, w = 8, 40, 48
+    gen = torch.Generator().manual_seed(1)
+    transforms = {"ada_p1": geometric_matrix(draw_augment(gen, b, "cpu").geom, h, w,
+                                             torch.tensor(1.0)),
+                  **chip_smoke.gather_transforms(torch, gen, b, h, w, "cpu")}
+    cases = {}
+    for name, g in transforms.items():
+        sx, sy = source_coords(g, h, w)
+        for aa in (True, False):
+            cases[f"{name}_aa{int(aa)}"] = (sx, sy, *tent_widths(g, antialias=aa), aa)
+    rs = [torch.rand((4, 8, 8), generator=gen) * 12 - 2 for _ in range(2)]
+    cases["random_8x8_aa1"] = (*rs, torch.full((4,), 1.5), torch.full((4,), 2.5), True)
+    return cases
+
+
+GATHER_CASES = _gather_cases()
+
+
+@pytest.mark.parametrize("name", sorted(GATHER_CASES))
+def test_warp_gather_visits_every_nonzero_term(name):
+    """Every (output pixel p, tap q) pair whose two tent weights are nonzero
+    (the plain version's ``_tent``) is visited by the gather for q: p lies
+    in q's own box, in its block's region, and is staged there."""
+    sx, sy, wx, wy, aa = GATHER_CASES[name]
+    b, h, w = sx.shape
+    mx = (_tent(sx, w, wx, aa) != 0).numpy()  # [B, H, W, W']
+    my = (_tent(sy, h, wy, aa) != 0).numpy()  # [B, H, W, H']
+    qy, qx = (v.ravel() for v in np.mgrid[0:h, 0:w])
+    terms = 0
+    for i in range(b):
+        f = _gather_frame(sx[i].numpy(), sy[i].numpy(), wx[i].numpy(), wy[i].numpy())
+        need = (my[i].reshape(h * w, h, 1) & mx[i].reshape(h * w, 1, w)).reshape(h * w, h * w)
+        missed = need & ~_gather_visits(f, h, w, qx, qy)
+        assert not missed.any(), f"image {i}: {missed.sum()} terms outside the gather's boxes"
+        terms += need.sum()
+    assert terms > 0
+
+
+@pytest.mark.parametrize("name", ["ada_p1_aa1", "rot90_flip_aa1", "minify_4x_aa1",
+                                  "magnify_4x_aa0"])
+def test_warp_gather_boxes_stay_tight_on_the_systems_coordinates(name):
+    """On affine coordinates (``source_coords``) the measured deviation is
+    float32 rounding, far below 2^-8 px, and each tap visits few output
+    pixels beyond those that reach it: the gather's cost follows the
+    terms, not the frame."""
+    sx, sy, wx, wy, aa = GATHER_CASES[name]
+    b, h, w = sx.shape
+    qy, qx = (v.ravel() for v in np.mgrid[0:h, 0:w])
+    visits = need = 0
+    for i in range(b):
+        f = _gather_frame(sx[i].numpy(), sy[i].numpy(), wx[i].numpy(), wy[i].numpy())
+        assert not f["whole"] and max(f["dev"]) < 2.0**-8
+        visits += _gather_visits(f, h, w, qx, qy).sum()
+    mx = _tent(sx, w, wx, aa) != 0
+    my = _tent(sy, h, wy, aa) != 0
+    need = (mx.sum(-1) * my.sum(-1)).sum().item()
+    assert visits <= 4 * need + 16 * b * h * w
+
+
+def test_warp_gather_takes_the_whole_frame_without_a_usable_hint():
+    """A NaN or infinite corner, or three collinear corners, leave no hint:
+    every tap's box is the whole frame."""
+    sx = np.tile(np.arange(8, dtype=np.float32), (8, 1))
+    sy = sx.T.copy()
+    one = np.float32(1)
+    assert not _gather_frame(sx, sy, one, one)["whole"]
+    for bad in (np.nan, np.inf):
+        corner = sx.copy()
+        corner[0, 7] = bad
+        assert _gather_frame(corner, sy, one, one)["whole"]
+    assert _gather_frame(sx, sx.copy(), one, one)["whole"]  # sy = sx: singular
