@@ -1,5 +1,6 @@
 """Drive the PyTorch port on one NVIDIA GPU, end to end: the 1->N serving
-path, the discriminator phase of training and the fused training step.
+path, the discriminator phase of training, the fused training step and
+the training run (the Trainer: data, logs, checkpoints, resume).
 
     python3 chip_smoke.py
 
@@ -71,7 +72,21 @@ started together), then runs, in order:
 13. the fused step of phase 11 with ``training.deterministic_cuda_kernels
    = true``, twice from seed 0 for 3 steps: every parameter, Adam moment,
    ADA and buffer tensor and every metric bitwise equal between the two
-   runs, the steps timed beside phase 11's.
+   runs, the steps timed beside phase 11's;
+14. the training run through the ``Trainer``, at phase 11's config on
+   image folders (64 train images a domain), in groups of 8 steps: (a)
+   16 steps, a server started on the run's checkpoint, then a new
+   Trainer that prints ``Resumed from checkpoint at step 16`` and trains
+   to 32: the log lines in the ``Logger``'s format, the FID/KID lines,
+   the grids, 64 validation images, one checkpoint kept, exactly 3 warp
+   forwards, 1 warp backward and 30 instance norms in every step, the
+   loop's step time beside phase 11's bare step, the device's idle share
+   over 8 steps under ``torch.profiler``, the checkpoint's parts timed,
+   the bytes sent to the card, and ``POST /reload`` answering step 32;
+   (c) the run's artifact and its checkpoint behind two engines give the
+   same images bitwise; (b) under ``deterministic_cuda_kernels``, 16
+   steps in one run and as 8 + a resume to 16: the two checkpoints
+   bitwise equal.
 
 Any failed check raises, and the script exits non-zero. Before its last
 line it prints one JSON line ``{"kernels": [...]}``; its last line is
@@ -232,6 +247,16 @@ G_MAX_FLIP_SHARE = 3e-6
 # Phase 13: fused steps per run, two runs from one seed under
 # training.deterministic_cuda_kernels = true; step 0 is a path step.
 DET_STEPS = 3
+# Phase 14: the Trainer at the fused step's config (phase 11) on image
+# folders of 64 train and 16 test images per domain, 32 steps in groups of
+# 8 (logs every 8, checkpoints every 16 with grids and 64 validation
+# images at batch 32, one checkpoint kept), run as 16 + a resume to 32; the
+# group of steps 24-31 under torch.profiler. The exact-resume check runs
+# 16 steps once and as 8 + a resume to 16 with a checkpoint every 8.
+T_STEPS, T_LOG, T_CKPT, T_GROUP, T_PROFILE_STEP = 32, 8, 16, 8, 24
+T_TRAIN_IMAGES, T_TEST_IMAGES = 64, 16
+T_EVAL_IMAGES, T_EVAL_BATCH = 64, 32
+T_ENGINE_N = 8
 
 
 def log(msg: str) -> None:
@@ -1668,6 +1693,328 @@ def phase_deterministic(torch, fused: dict) -> dict:
             "metrics": [{k: v.item() for k, v in m.items()} for m in a["metrics"]]}
 
 
+# ---------------------------------------------------------------- phase 14
+
+
+class _Tee(io.TextIOBase):
+    """A text stream that writes to several."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text: str) -> int:
+        for stream in self.streams:
+            stream.write(text)
+        return len(text)
+
+    def flush(self) -> None:
+        for stream in self.streams:
+            stream.flush()
+
+
+def trainer_config(root: Path, run: str, **overrides):
+    """Phase 11's config as a Trainer's: the folders under ``root``, the
+    run ``run``, phase 14's schedule; ``overrides`` by section."""
+    config = d_phase_config("bfloat16", D_BATCH, path_interval=G_INTERVAL)
+    config["training"].update(checkpoint_directory=root, training_run=run,
+                              training_steps=T_STEPS)
+    config["data"].update(shoeprint_data_dir=root / "prints", shoemark_data_dir=root / "marks")
+    config["evaluation"].update(log_interval=T_LOG, checkpoint_interval=T_CKPT,
+                                n_evaluation_images=T_EVAL_IMAGES,
+                                inference_batch_size=T_EVAL_BATCH)
+    config["tpu"].update(keep_checkpoints=1, prefetch=2, steps_per_call=T_GROUP)
+    for section, values in overrides.items():
+        config[section].update(values)
+    return config
+
+
+def log_line_pattern(torch, training_steps: int):
+    """The Logger's line as a regex: a line of its own format with every
+    number replaced by a number pattern."""
+    import re
+
+    from one_to_many_gan_torch.core.evaluation import Logger
+
+    logger = Logger(training_steps)
+    logger.append_metrics({k: torch.tensor(0.25) for k in Logger.METRICS})
+    line, _ = logger.summary(7)
+    number = r"[-+0-9.eEnaif]+"
+    pattern = re.escape(line).replace(re.escape("0.25"), number)
+    return re.compile(pattern.replace("Step:\\ 7/", r"Step:\ \d+/"))
+
+
+def _load_ckpt(torch, path: Path) -> dict:
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def _ckpt_differences(torch, a, b, where: str = "") -> tuple[list, int, int]:
+    """(paths that differ, tensors compared, their elements) of two
+    checkpoint dicts, bitwise."""
+    if torch.is_tensor(a):
+        same = torch.is_tensor(b) and a.dtype == b.dtype and torch.equal(a, b)
+        return ([] if same else [where]), 1, a.numel()
+    if isinstance(a, dict) or isinstance(a, list):
+        keys = list(a) if isinstance(a, dict) else range(len(a))
+        if (list(a) != list(b)) if isinstance(a, dict) else len(a) != len(b):
+            return [f"{where} (keys)"], 0, 0
+        out = ([], 0, 0)
+        for k in keys:
+            d, n, e = _ckpt_differences(torch, a[k], b[k], f"{where}.{k}")
+            out = (out[0] + d, out[1] + n, out[2] + e)
+        return out
+    return ([] if a == b else [where]), 0, 0
+
+
+def _trainer_with_taps(torch, config, counters, per_step: list, summaries: list, h2d: list):
+    """A Trainer whose fused step records each step's launches, whose
+    logger records when each log line was ready (synchronised: the
+    summary reads the metrics back), and whose groups record their bytes."""
+    from one_to_many_gan_torch.core.trainer import Trainer
+
+    trainer = Trainer(config)
+    step_fn = trainer.train_step
+
+    def counted(*args):
+        c0 = [c.launches for c in counters]
+        out = step_fn(*args)
+        per_step.append([c.launches - k for c, k in zip(counters, c0, strict=True)])
+        return out
+
+    summary = trainer.logger.summary
+
+    def timed(step):
+        out = summary(step)
+        summaries.append((step, time.perf_counter()))
+        return out
+
+    make_group = trainer._make_group
+
+    def measured(k):
+        group = make_group(k)
+        h2d.append((k, group[0].nbytes))
+        return group
+
+    trainer.train_step = counted
+    trainer.logger.summary = timed
+    trainer._make_group = measured
+    return trainer
+
+
+def _post_reload(port: int) -> dict:
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/reload", data=b"", method="POST")
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        return json.loads(resp.read())
+
+
+def phase_trainer(torch, fused: dict) -> dict:
+    """The training run through its entry points: ``Trainer`` on image
+    folders at phase 11's config; (a) 16 steps, then a new Trainer that
+    resumes to 32, with a server started between the two; (b) under
+    ``deterministic_cuda_kernels``, 16 steps against 8 + a resume to 16,
+    their checkpoints bitwise equal; (c) the artifact of (a)'s run served
+    beside its checkpoint, and the server's ``/reload``."""
+    import tempfile
+
+    from one_to_many_gan_torch import serve
+    from one_to_many_gan_torch.data import _load_image, write_synthetic_dataset_dirs
+    from one_to_many_gan_torch.export import export_inference_artifact
+    from one_to_many_gan_torch.ops.cuda import fused_instance_norm, warp, warp_bwd
+
+    t_phase = time.perf_counter()
+    counters = (warp, warp_bwd, fused_instance_norm)
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_") as tmp:
+        root = Path(tmp)
+        for domain, seed in (("prints", 0), ("marks", 9)):
+            write_synthetic_dataset_dirs(root / domain, n_train=T_TRAIN_IMAGES,
+                                         n_test=T_TEST_IMAGES, image_size=(D_SIZE, D_SIZE),
+                                         seed=seed)
+        config = trainer_config(root, "a", tpu={"profile_step": T_PROFILE_STEP})
+        run_dir = root / "a"
+        per_step, summaries, h2d = [], [], []
+        printed = io.StringIO()
+
+        # (a) the main path: 16 steps, a server, a resume to 32
+        for c in counters:
+            c.launches = 0
+        with contextlib.redirect_stdout(_Tee(sys.stdout, printed)):
+            first = _trainer_with_taps(torch, config, counters, per_step, summaries, h2d)
+            check(first.start_step == 0, f"a fresh run starts at {first.start_step}")
+            t0 = time.perf_counter()
+            first.run(max_steps=T_CKPT)
+            first_s = time.perf_counter() - t0
+            timings_16 = dict(first.timings)
+            engine = serve.InferenceEngine(config, buckets=(T_ENGINE_N,))
+            check(engine.step == T_CKPT, f"the server restored step {engine.step}")
+            httpd = serve.make_server(engine, host="127.0.0.1", port=0)
+            server = threading.Thread(target=httpd.serve_forever, daemon=True)
+            server.start()
+            try:
+                second = _trainer_with_taps(torch, config, counters, per_step, summaries, h2d)
+                check(second.start_step == T_CKPT, f"the resume starts at {second.start_step}")
+                t0 = time.perf_counter()
+                second.run()
+                second_s = time.perf_counter() - t0
+                launches = dict(zip(("warp_fwd", "warp_bwd", "instance_norm"),
+                                    (c.launches for c in counters), strict=True))
+                reload = _post_reload(httpd.server_address[1])
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+                httpd.batcher.close()
+                server.join(timeout=60)
+        check(not server.is_alive(), "the server thread did not stop")
+        check(reload == {"status": "ok", "step": T_STEPS}, f"/reload answered {reload}")
+        check(engine.step == T_STEPS, f"the server serves step {engine.step}")
+        text = printed.getvalue()
+        check(f"Resumed from checkpoint at step {T_CKPT}" in text.splitlines(),
+              "the resumed Trainer did not print 'Resumed from checkpoint at step 16'")
+        want = [G_WARPS_PER_STEP, G_WARP_BWDS_PER_STEP, G_IN_PER_STEP]
+        bad = [(k, n) for k, n in enumerate(per_step) if n != want]
+        check(len(per_step) == T_STEPS and not bad,
+              f"{len(per_step)} Trainer steps; launches off {want} at {bad[:4]}")
+        pattern = log_line_pattern(torch, T_STEPS)
+        lines = (run_dir / "log").read_text().splitlines()
+        train_lines = [ln for ln in lines if ln.startswith("Step:")]
+        fid_lines = [ln for ln in lines if ln.startswith("Step ")]
+        check([ln.split("/")[0] for ln in train_lines]
+              == [f"Step: {s}" for s in range(T_LOG, T_STEPS + 1, T_LOG)]
+              and all(pattern.fullmatch(ln) for ln in train_lines),
+              f"training log lines {train_lines}")
+        check(len(fid_lines) == 2 and all(
+            ln.startswith(f"Step {s} | fid: ") and ln.endswith("[random_projection_v1]")
+            for ln, s in zip(fid_lines, (T_CKPT, T_STEPS), strict=True)),
+            f"FID/KID log lines {fid_lines}")
+        records = [json.loads(ln) for ln in (run_dir / "metrics.jsonl").read_text().splitlines()]
+        fids = [r for r in records if "fid" in r]
+        check([r["step"] for r in records if "fid" not in r] == [8, 16, 24, 32]
+              and [(r["step"], r["fid_extractor"]) for r in fids]
+              == [(T_CKPT, "random_projection_v1"), (T_STEPS, "random_projection_v1")]
+              and all(np.isfinite(r["fid"]) and np.isfinite(r["kid"]) for r in fids),
+              f"metrics.jsonl {records}")
+        means = [r for r in records if "fid" not in r]
+        check(all(np.isfinite(v) for r in means for v in r.values()),
+              "a logged mean is not finite")
+        grids = sorted(p.name for p in (run_dir / "images").iterdir())
+        check(grids == [f"{kind}_{s}.png" for kind in ("decoding", "translation")
+                        for s in (T_CKPT, T_STEPS)], f"grids {grids}")
+        n_val = len(list((run_dir / "val").glob("*.png")))
+        check(n_val == T_EVAL_IMAGES, f"{n_val} validation images")
+        kept = sorted(p.name for p in (run_dir / "models").iterdir())
+        check(kept == [f"{T_STEPS}.tar"], f"checkpoints kept: {kept}")
+        tar_mb = (run_dir / "models" / f"{T_STEPS}.tar").stat().st_size / 2**20
+        check(all(nbytes == 4 * k * D_BATCH * D_SIZE * D_SIZE for k, nbytes in h2d),
+              f"groups' bytes {h2d[:3]}")
+        h2d_step = h2d[0][1] / h2d[0][0]
+
+        # the loop's speed: log line to log line, 8 steps, both ends synchronised
+        at = dict(summaries)
+        window_ms = (at[2 * T_LOG] - at[T_LOG]) * 1e3 / T_LOG
+        overhead = window_ms / fused["mean_ms"] - 1.0
+        prof = second.profile
+        check(prof is not None and prof["steps"] == T_GROUP and prof["device_busy_ms"] > 0,
+              f"profile {prof}")
+        profiled_ms = prof["wall_ms"] / prof["steps"]
+        timings_32 = dict(second.timings)
+        log(f"Trainer ({D_SIZE}x{D_SIZE}, batch {D_BATCH}, bf16, path interval {G_INTERVAL}, "
+            f"groups of {T_GROUP}): steps 8-15 {window_ms:.2f} ms a step = "
+            f"{D_BATCH / window_ms * 1e3:.1f} images/s against phase 11's bare-step mean "
+            f"{fused['mean_ms']:.2f} ms ({D_BATCH / fused['mean_ms'] * 1e3:.1f} images/s): "
+            f"loop overhead {overhead:+.1%}; steps 24-31 under torch.profiler "
+            f"{profiled_ms:.2f} ms a step")
+        log(f"  device idle over steps 24-31: {prof['idle_share']:.1%} (busy "
+            f"{prof['device_busy_ms']:.2f} of {prof['wall_ms']:.2f} ms)")
+        log(f"  checkpoint at 16: image grids {timings_16['image'] * 1e3:.1f} ms, "
+            f"val_checkpoint ({T_EVAL_IMAGES} images, FID/KID) {timings_16['val'] * 1e3:.1f} ms, "
+            f"save {timings_16['save'] * 1e3:.1f} ms; at 32: {timings_32['image'] * 1e3:.1f}, "
+            f"{timings_32['val'] * 1e3:.1f}, {timings_32['save'] * 1e3:.1f} ms; "
+            f"{T_STEPS}.tar {tar_mb:.2f} MiB")
+        log(f"  H2D {h2d_step:.0f} bytes a step (uint8); launches over the two runs' "
+            f"{T_STEPS} steps and 2 checkpoints: {launches} ({want} in every step); "
+            f"runs {first_s:.1f} + {second_s:.1f} s; /reload -> {reload}")
+        out["a"] = {
+            "window_ms": window_ms, "images_per_s": D_BATCH / window_ms * 1e3,
+            "fused_mean_ms": fused["mean_ms"], "overhead": overhead,
+            "profiled_ms": profiled_ms, "profile": prof, "timings_16": timings_16,
+            "timings_32": timings_32, "tar_mib": tar_mb, "h2d_bytes_per_step": h2d_step,
+            "launches": launches, "per_step": per_step[:2], "run_s": [first_s, second_s],
+            "log": lines, "reload": reload,
+        }
+
+        # (b) and (c) under deterministic_cuda_kernels; the flags set back after
+        cudnn = torch.backends.cudnn
+        flags = (torch.are_deterministic_algorithms_enabled(),
+                 torch.is_deterministic_algorithms_warn_only_enabled(), cudnn.deterministic,
+                 cudnn.benchmark)
+        try:
+            out["c"] = _artifact_and_checkpoint_serve_alike(
+                torch, config, root, serve, export_inference_artifact, _load_image)
+            out["b"] = _exact_resume(torch, root)
+        finally:
+            torch.use_deterministic_algorithms(flags[0], warn_only=flags[1])
+            cudnn.deterministic, cudnn.benchmark = flags[2], flags[3]
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 14 ok in {out['wall_s']:.1f} s")
+    return out
+
+
+def _artifact_and_checkpoint_serve_alike(torch, config, root, serve, export, load_image):
+    """(c): the artifact of (a)'s run and its checkpoint, each behind an
+    engine (deterministic kernels), give the same n = 8 images bitwise."""
+    det = copy.deepcopy(config)
+    det["training"]["deterministic_cuda_kernels"] = True
+    t0 = time.perf_counter()
+    path = export(config, root / "model.npz")
+    export_s = time.perf_counter() - t0
+    from_art = serve.InferenceEngine(det, buckets=(T_ENGINE_N,), artifact=path)
+    from_ckpt = serve.InferenceEngine(det, buckets=(T_ENGINE_N,))
+    check(from_art.step == from_ckpt.step == T_STEPS,
+          f"artifact step {from_art.step}, checkpoint step {from_ckpt.step}")
+    source = load_image(root / "prints" / "test" / "00000.png", (D_SIZE, D_SIZE), 1)
+    for seed in (0, 1):
+        a = from_art.generate(source, T_ENGINE_N, seed=seed)
+        b = from_ckpt.generate(source, T_ENGINE_N, seed=seed)
+        check(a.shape == (T_ENGINE_N, D_SIZE, D_SIZE, 1) and np.array_equal(a, b),
+              f"seed {seed}: the artifact's engine and the checkpoint's differ")
+    mb = path.stat().st_size / 2**20
+    log(f"  artifact {mb:.2f} MiB written in {export_s * 1e3:.1f} ms; its engine and the "
+        f"checkpoint's give the same {T_ENGINE_N} images bitwise (2 seeds)")
+    return {"artifact_mib": mb, "export_s": export_s}
+
+
+def _exact_resume(torch, root: Path) -> dict:
+    """(b): under deterministic_cuda_kernels, 16 steps in one run and as
+    8 + a resume to 16 (a full checkpoint at 8 in both): every tensor of
+    the two 16.tar files bitwise equal."""
+    from one_to_many_gan_torch.core.trainer import Trainer
+
+    overrides = {"training": {"training_steps": T_CKPT, "deterministic_cuda_kernels": True},
+                 "evaluation": {"checkpoint_interval": T_LOG}}
+    full = trainer_config(root, "b_full", **overrides)
+    split = trainer_config(root, "b_split", **overrides)
+    t0 = time.perf_counter()
+    Trainer(full, verbose=False).run()
+    full_s = time.perf_counter() - t0
+    Trainer(split, verbose=False).run(max_steps=T_LOG)
+    resumed = Trainer(split, verbose=False)
+    check(resumed.start_step == T_LOG, f"(b) resumed at {resumed.start_step}")
+    resumed.run()
+    check(torch.are_deterministic_algorithms_enabled(), "(b) ran without deterministic kernels")
+    a = _load_ckpt(torch, root / "b_full" / "models" / f"{T_CKPT}.tar")
+    b = _load_ckpt(torch, root / "b_split" / "models" / f"{T_CKPT}.tar")
+    differ, n_tensors, n_elems = _ckpt_differences(torch, a, b)
+    log(f"  exact resume (deterministic kernels): 16 steps against 8 + a resume to 16: "
+        f"{n_tensors} tensors ({n_elems} elements) of {T_CKPT}.tar compared, {len(differ)} "
+        f"differ {differ[:8]}; the uninterrupted run took {full_s:.1f} s")
+    # each parameter with its Adam step and moments, the buffer's images, the ADA window
+    n_params = sum(len(list(getattr(resumed.state, m).parameters()))
+                   for m in ("generator", "discriminator", "mapping", "extractor"))
+    want = 4 * n_params + len(b["image_buffer_images"]) + 2
+    check(n_tensors == want and not differ,
+          f"{n_tensors} tensors compared (want {want}); differ: {differ[:20]}")
+    return {"tensors": n_tensors, "elements": n_elems, "differ": differ, "full_run_s": full_s}
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -1709,13 +2056,17 @@ def main() -> int:
     report["g_card_vs_cpu"] = phase_g_card_vs_cpu(torch)
     torch.cuda.empty_cache()
     report["deterministic"] = phase_deterministic(torch, report["fused_step"])
+    torch.cuda.empty_cache()
+    report["trainer"] = phase_trainer(torch, report["fused_step"])
 
     fused = report["fused_step"]["launches"]
     enc = report["kernels"]["per_encode"]["float32_b1"]
     f32_cases = [k for k in report["kernels"]["cases"] if k["dtype"] == "float32"]
+    trained = report["trainer"]["a"]["launches"]
     in_by_phase = {"serve (phase 3)": report["serve"]["launches"],
                    "D phase (phase 8)": report["d_phase"]["in_launches"],
-                   "fused step (phase 11)": fused["instance_norm"]}
+                   "fused step (phase 11)": fused["instance_norm"],
+                   "Trainer (phase 14)": trained["instance_norm"]}
     kernels = [{
         "name": "instance_norm",
         "route": "cuda",
@@ -1742,7 +2093,8 @@ def main() -> int:
 
     d_case, off_case = warp_case("warp", "bfloat16", True), warp_case("warp", "float32", False)
     fwd_by_phase = {"D phase (phase 8)": report["d_phase"]["warp_launches"],
-                    "fused step (phase 11)": fused["warp_fwd"]}
+                    "fused step (phase 11)": fused["warp_fwd"],
+                    "Trainer (phase 14)": trained["warp_fwd"]}
     kernels.append({
         "name": "warp_fwd",
         "route": "cuda",
@@ -1769,7 +2121,7 @@ def main() -> int:
         "route": "cuda",
         "source": "one_to_many_gan_torch/csrc/warp.cu",
         "replaces": WARP_BWD_REPLACES,
-        "launches": fused["warp_bwd"],
+        "launches": fused["warp_bwd"] + trained["warp_bwd"],
         "max_abs_err": max(c["max_abs_err"] for c in report["warp_bwd"]["cases"]
                            if c["dtype"] == "float32"),
         "ms": b_case["kernel_ms"],
@@ -1783,7 +2135,8 @@ def main() -> int:
         "prepass_share_warm": report["warp_bwd"]["prepass_share"]["share"],
         "grid_sampler_2d_backward_ms_antialias_off_f32": b_off["library_ms"],
         "kernel_ms_antialias_off_f32": b_off["kernel_ms"],
-        "launches_by_phase": {"fused step (phase 11)": fused["warp_bwd"]},
+        "launches_by_phase": {"fused step (phase 11)": fused["warp_bwd"],
+                              "Trainer (phase 14)": trained["warp_bwd"]},
         "checked_in": "phase 10",
     })
     report["wall_s"] = time.perf_counter() - t_start

@@ -7,8 +7,9 @@ defaults are filled in below. Of ``[tpu]`` the port reads ``precision``
 ``ada_antialias`` and ``path_interval``; ``check_training_options``
 refuses the training options it does not run yet. ``ada_pallas`` chooses between two TPU
 implementations of the ADA warp; the port always computes the Pallas
-kernel's numerics, so it ignores the key. The other keys are validated
-so that one file configures both packages.
+kernel's numerics, so it ignores the key; ``compilation_cache_dir`` is a
+JAX compile cache, also ignored. The other keys are validated so that
+one file configures both packages.
 """
 
 from __future__ import annotations
@@ -121,20 +122,34 @@ def n_downsamples(config: Config) -> int:
 # [tpu] training options the port does not run yet, with their off value.
 _NOT_PORTED = {
     "r1_gamma": 0.0, "ema_decay": 0.0, "ada_supersample": False, "g_loss_split": False,
+    "split_phases": False, "native_loader": False, "tensorboard": False,
 }
 
 
 def check_training_options(config: Config) -> None:
-    """Raise ``NotImplementedError`` for a training option the port does
-    not run yet: R1 (``r1_gamma > 0``), generator EMA (``ema_decay > 0``),
-    the 2x supersampled ADA warp (``ada_supersample``) or the generator
-    loss's two accumulated sub-backwards (``g_loss_split``).
+    """Raise ``NotImplementedError``, naming the key, for a training option
+    the port does not run yet: R1 (``r1_gamma > 0``), generator EMA
+    (``ema_decay > 0``), the 2x supersampled ADA warp (``ada_supersample``),
+    the generator loss's two accumulated sub-backwards (``g_loss_split``),
+    the D and G phases as two programs (``split_phases``), rematerialisation
+    (``remat`` other than "none"), the C++ data loader (``native_loader``),
+    TensorBoard (``tensorboard``), and more than one device
+    (``data_parallel`` other than 1 or -1, ``spatial_parallel > 1``; -1, all
+    devices, is the one card the port trains on).
     ``training.deterministic_cuda_kernels`` is not refused: ``Models``
     runs it (``device.use_deterministic_kernels``)."""
-    for key, off in _NOT_PORTED.items():
-        if config["tpu"][key]:
-            msg = (
-                f"tpu.{key} = {config['tpu'][key]!r} is not ported to PyTorch yet "
-                f"(see ROADMAP.md); set it to {off!r}"
-            )
-            raise NotImplementedError(msg)
+    tpu = config["tpu"]
+    refused = [(key, off) for key, off in _NOT_PORTED.items() if tpu[key]]
+    if tpu["remat"] != "none":
+        refused.append(("remat", "none"))
+    if tpu["data_parallel"] not in (1, -1):
+        refused.append(("data_parallel", 1))
+    if tpu["spatial_parallel"] > 1:
+        refused.append(("spatial_parallel", 1))
+    if refused:
+        key, off = refused[0]
+        msg = (
+            f"tpu.{key} = {tpu[key]!r} is not ported to PyTorch yet "
+            f"(see ROADMAP.md); set it to {off!r}"
+        )
+        raise NotImplementedError(msg)

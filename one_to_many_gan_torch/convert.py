@@ -1,4 +1,4 @@
-"""The weight bridge: JAX parameter trees -> the port's modules.
+"""The weight bridge: JAX parameter trees <-> the port's modules.
 
 ``from_jax_params`` takes the generator, mapping-network and (optionally)
 discriminator and style-extractor variable trees as the JAX package
@@ -131,3 +131,31 @@ def from_jax_params(
     if params_s is not None:
         _load(_extractor_layers(target.extractor), params_s, "extractor")
     return target
+
+
+def _to_jax_layout(arr: np.ndarray, layout: str) -> np.ndarray:
+    if layout == "conv":
+        return arr.transpose(2, 3, 1, 0)
+    if layout == "linear":
+        return arr.T
+    return arr
+
+
+def _dump(layers) -> dict:
+    tree: dict = {}
+    for path, param, layout in jax_leaves(layers):
+        *parents, leaf = path.split("/")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        value = param.detach().to("cpu", torch.float32).numpy()
+        node[leaf] = np.ascontiguousarray(_to_jax_layout(value, layout))
+    return tree
+
+
+def to_jax_params(source: Models | TrainState) -> tuple[dict, dict]:
+    """-> (params_g, params_m): ``source``'s generator and mapping network
+    as the JAX package's variable trees (nested dicts of float32 numpy
+    arrays, HWIO convs, ``[in, out]`` linears); ``from_jax_params`` of
+    them gives back the same values."""
+    return _dump(_generator_layers(source.generator)), _dump(_mapping_layers(source.mapping))

@@ -4,8 +4,10 @@
         --source path/to/shoeprint.png --n 64 --out out_dir \
         [--artifact model.npz] [--seed 0] [--theta 1.0] [--device cpu]
 
-Serves the JAX package's exported inference artifact (``--artifact``);
-without one it generates with fresh weights from ``--seed`` and warns.
+Generates with an inference artifact (``--artifact``: ``export.py``'s,
+or the JAX package's) or else with the configured run's latest
+checkpoint (``<run>/models/<step>.tar``); without either, with fresh
+weights from ``--seed`` and a warning.
 Encodes the source once and decodes all N styles in one batched call on
 the device (``cuda`` unless ``--device cpu``; raises without a GPU). The
 style draws come from ``torch.Generator(device).manual_seed(seed)``.
@@ -39,6 +41,7 @@ def generate(
     from one_to_many_gan_torch.data.datasets import _load_image
     from one_to_many_gan_torch.data.pipeline import normalize_u8
     from one_to_many_gan_torch.export import load_inference_artifact
+    from one_to_many_gan_torch.migrate import latest_checkpoint, load_inference_weights
 
     config = load_config(config_path)
     models = Models(config, device=device, seed=seed)
@@ -47,7 +50,12 @@ def generate(
         from_jax_params(models, params_g, params_m)
         print(f"loaded inference artifact at step {step}")
     else:
-        print("warning: no inference artifact given; generating with fresh weights")
+        ckpt, step = latest_checkpoint(config)
+        if ckpt is None:
+            print("warning: no checkpoint found; generating with fresh weights")
+        else:
+            load_inference_weights(ckpt, models)
+            print(f"loaded checkpoint at step {step}")
 
     img_u8 = _load_image(
         Path(source),
@@ -83,8 +91,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument(
         "--artifact",
         default=None,
-        help="the JAX package's exported inference artifact (npz); "
-        "without it, fresh weights from --seed",
+        help="an exported inference artifact (npz); without it, the run's latest "
+        "checkpoint, or fresh weights from --seed when it has none",
     )
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)

@@ -22,15 +22,18 @@ API (stdlib ``http.server``):
   ``application/zip`` of ``n`` PNG shoemarks (``shoemark_0000.png``...)
 - ``POST /generate?...&format=npy`` -> one ``[n, H, W, C]`` uint8
   ``.npy`` payload
-- ``POST /reload`` -> 400: the port serves an immutable artifact (the
-  Orbax checkpoints that /reload tracks need the JAX package)
+- ``POST /reload`` -> ``{"status": "ok", "step": N}``: re-reads the
+  configured run's newest checkpoint (``<run>/models/<step>.tar``), so a
+  server follows a training run; 400 for an engine that serves an
+  artifact (immutable)
 
 CLI:
-    python -m one_to_many_gan_torch.serve config.toml --artifact model.npz \
+    python -m one_to_many_gan_torch.serve config.toml [--artifact model.npz] \
         [--host 0.0.0.0] [--port 8000] [--buckets 8,32,64] [--device cpu]
 
-Without ``--artifact`` it serves fresh weights from seed 0, with a
-warning. ``--device`` defaults to ``cuda`` and raises without a GPU.
+Without ``--artifact`` it serves the configured run's latest checkpoint,
+or, when the run has none, fresh weights from seed 0 with a warning.
+``--device`` defaults to ``cuda`` and raises without a GPU.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ from one_to_many_gan_torch.core.state import Models
 from one_to_many_gan_torch.data.datasets import _load_image
 from one_to_many_gan_torch.data.pipeline import normalize_u8
 from one_to_many_gan_torch.export import load_inference_artifact
+from one_to_many_gan_torch.migrate import checkpoint_manager, load_inference_weights
 
 
 def _decode_image_bytes(data: bytes, image_size, channels: int) -> np.ndarray:
@@ -84,9 +88,10 @@ class InferenceEngine:
         config: full framework config (``load_config`` / ``tiny_config``).
         buckets: ascending N values; a request's ``n`` rounds up to the
             first bucket >= n (hard cap = max bucket).
-        artifact: path to the JAX package's inference artifact
-            (written by its ``export`` module), loaded through
-            ``convert.from_jax_params``. Without it the engine serves
+        artifact: path to an inference artifact (``export.py``, or the
+            JAX package's), loaded through ``convert.from_jax_params``.
+            Without it the engine serves the configured run's latest
+            checkpoint, and ``reload()`` follows the run; with none,
             fresh weights from ``seed``, with a warning.
         batch_buckets: ascending source-batch sizes for the coalesced
             path; a request group rounds up to the first bucket >= its
@@ -115,33 +120,47 @@ class InferenceEngine:
         self.batch_buckets = tuple(int(b) for b in batch_buckets)
         self.step, self.ema = 0, False
         models = Models(config, device=device, seed=seed)
+        self.models = models
+        # one request on the device at a time; the HTTP layer is threaded
+        self._lock = threading.Lock()
+        # one /reload at a time (the threaded server allows concurrent ones)
+        self._reload_lock = threading.Lock()
+        self._mgr = None
         if artifact is not None:
             params_g, params_m, self.step, self.ema = load_inference_artifact(artifact)
             from_jax_params(models, params_g, params_m)
         else:
-            warnings.warn(
-                f"no inference artifact given; serving fresh weights from seed {seed}",
-                stacklevel=2,
-            )
-        self.models = models
+            self._mgr = checkpoint_manager(config)
+            if self.reload() == 0:
+                warnings.warn(
+                    f"no inference artifact given and no checkpoint of run "
+                    f"{config['training']['training_run']!r}; serving fresh weights "
+                    f"from seed {seed}",
+                    stacklevel=2,
+                )
         self.device = models.device
         self.precision = config["tpu"]["precision"]
         self.image_size = tuple(config["data"]["image_size"])
         self.channels = config["data"]["image_channels"]
         _, _, self._fn = make_inference_fns(models)
-        # one request on the device at a time; the HTTP layer is threaded
-        self._lock = threading.Lock()
         self.device_calls = 0
 
     def reload(self) -> int:
-        """Refused: the port serves an immutable artifact (or fresh
-        weights). Tracking a training run's Orbax checkpoints needs the
-        JAX package."""
-        msg = (
-            "reload unavailable: engine is backed by an immutable artifact; "
-            "Orbax checkpoints are not readable by the PyTorch port"
-        )
-        raise ValueError(msg)
+        """Load the configured run's newest checkpoint when it is newer
+        than the served step (the generator and the mapping network,
+        swapped between requests); -> the served step. ``ValueError`` for
+        an engine that serves an artifact."""
+        if self._mgr is None:
+            msg = "reload unavailable: engine is backed by an immutable artifact"
+            raise ValueError(msg)
+        with self._reload_lock:
+            latest = self._mgr.latest_step()
+            if latest is not None and latest != self.step:
+                ckpt = self._mgr.load(latest)
+                with self._lock:
+                    load_inference_weights(ckpt, self.models)
+                    self.step = latest
+            return self.step
 
     def bucket_for(self, n: int) -> int:
         for b in self.buckets:
@@ -597,8 +616,9 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument(
         "--artifact",
         default=None,
-        help="serve the JAX package's exported inference artifact (npz); "
-        "without it, fresh weights from seed 0",
+        help="serve an exported inference artifact (npz, this package's or the "
+        "JAX package's); without it, the run's latest checkpoint (/reload "
+        "follows the run), or fresh weights from seed 0 when it has none",
     )
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument(

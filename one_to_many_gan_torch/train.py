@@ -1,32 +1,46 @@
-"""Run fused training steps (the D phase, then the G phase) on synthetic
-batches.
+"""Train: the ``Trainer`` loop from image folders, or fused steps on noise.
 
-    python -m one_to_many_gan_torch.train config.toml \
-        [--steps 3] [--seed 0] [--ada-p 0.6] [--device cpu]
+    python -m one_to_many_gan_torch.train [config.toml] [--device cpu]
 
-Builds the models and the training state from the config with fresh
-weights from ``--seed``, then runs ``--steps`` fused steps, each on four
-fresh uniform [-1, 1) batches and fresh draws from
-``torch.Generator(device).manual_seed(seed)``, with the ADA probability
-starting at ``--ada-p``. Prints one JSON line per step: the metrics of
-both phases, whether it was a path step (``step % tpu.path_interval ==
-0``), the buffer's and the ADA window's counts, and the step's wall time
-(ms, synchronised on CUDA). Runs on ``cuda`` unless ``--device cpu``;
-raises without a GPU. With ``training.deterministic_cuda_kernels = true``
-two runs with one seed give the same bits (``device.use_deterministic_kernels``).
+Builds a ``Trainer`` from the config (the image folders
+``data.shoeprint_data_dir`` / ``data.shoemark_data_dir``, ``<dir>/train/``)
+and runs it: reference-format log lines every ``log_interval`` steps,
+image grids, validation FID/KID and a ``<run>/models/<step>.tar``
+checkpoint every ``checkpoint_interval`` steps and at the end; with
+``tpu.resume`` (the default) it continues from the run's latest
+checkpoint (``Resumed from checkpoint at step N``). Exit code 42 on
+``TrainingDiverged`` (a non-finite interval mean under
+``tpu.halt_on_nonfinite``): a resume would replay it. SIGTERM saves and
+exits at the next step group.
+
+    python -m one_to_many_gan_torch.train config.toml --synthetic-steps 3 \
+        [--seed 0] [--ada-p 0.6] [--device cpu]
+
+runs fused steps without data, checkpoints or logs: each on four fresh
+uniform [-1, 1) batches and fresh draws from
+``torch.Generator(device).manual_seed(seed)``, with fresh weights from
+``--seed`` and the ADA probability starting at ``--ada-p``, printing one
+JSON line per step: the metrics of both phases, whether it was a path
+step (``step % tpu.path_interval == 0``), the buffer's and the ADA
+window's counts, and the step's wall time (ms, synchronised on CUDA).
+
+Both modes run on ``cuda`` unless ``--device cpu``, and raise without a
+GPU. With ``training.deterministic_cuda_kernels = true`` two runs give
+the same bits (``device.use_deterministic_kernels``; the cuBLAS
+workspace is set before CUDA starts).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 import time
 
 import torch
 
 from one_to_many_gan_torch.augment import init_ada_state
 from one_to_many_gan_torch.config import Config, load_config
-from one_to_many_gan_torch.device import set_cublas_workspace
 from one_to_many_gan_torch.core.state import Models, TrainState, init_train_state
 from one_to_many_gan_torch.core.train_step import (
     Batches,
@@ -34,6 +48,9 @@ from one_to_many_gan_torch.core.train_step import (
     make_train_step,
     synthetic_batch,
 )
+from one_to_many_gan_torch.device import set_cublas_workspace
+
+DIVERGED_EXIT_CODE = 42
 
 
 def setup(config: Config, *, seed: int = 0, ada_p: float = 0.0, device=None):
@@ -56,23 +73,12 @@ def run_step(config: Config, models: Models, state: TrainState, train_step, gene
     return train_step(state, batches, draw_step(generator, config, models))
 
 
-def main(argv: list[str] | None = None) -> None:
-    ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("config")
-    ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--ada-p", type=float, default=0.0)
-    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
-    args = ap.parse_args(argv)
-    config = load_config(args.config)
-    if config["training"]["deterministic_cuda_kernels"]:
-        set_cublas_workspace()  # before anything touches CUDA
-    models, state, generator = setup(
-        config, seed=args.seed, ada_p=args.ada_p, device=args.device
-    )
+def run_synthetic(config: Config, steps: int, *, seed: int, ada_p: float, device) -> None:
+    """``--synthetic-steps``: fused steps on noise, one JSON line each."""
+    models, state, generator = setup(config, seed=seed, ada_p=ada_p, device=device)
     train_step = make_train_step(config, models)
     interval = config["tpu"]["path_interval"]
-    for step in range(args.steps):
+    for step in range(steps):
         path_step = state.step % interval == 0
         t0 = time.perf_counter()
         state, metrics = run_step(config, models, state, train_step, generator)
@@ -84,6 +90,32 @@ def main(argv: list[str] | None = None) -> None:
                     buffer_count=int(state.buffer.count), ada_count=int(state.ada.count),
                     device=str(models.device))
         print(json.dumps(line), flush=True)
+
+
+def main(argv: list[str] | None = None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("config", nargs="?", default="config.toml")
+    ap.add_argument("--synthetic-steps", type=int, default=None,
+                    help="run this many fused steps on noise instead of the Trainer")
+    ap.add_argument("--seed", type=int, default=0, help="--synthetic-steps only")
+    ap.add_argument("--ada-p", type=float, default=0.0, help="--synthetic-steps only")
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    config = load_config(args.config)
+    if config["training"]["deterministic_cuda_kernels"]:
+        set_cublas_workspace()  # before anything touches CUDA
+    if args.synthetic_steps is not None:
+        run_synthetic(config, args.synthetic_steps, seed=args.seed, ada_p=args.ada_p,
+                      device=args.device)
+        return
+    from one_to_many_gan_torch.core.trainer import Trainer, TrainingDiverged
+
+    try:
+        Trainer(config, device=args.device).run()
+    except TrainingDiverged as exc:
+        print(f"TrainingDiverged: {exc}", file=sys.stderr)
+        sys.exit(DIVERGED_EXIT_CODE)
 
 
 if __name__ == "__main__":

@@ -137,7 +137,7 @@ def test_train_cli_sets_the_cublas_workspace_under_the_key(process_flags, tmp_pa
     text = text.replace("n_resnet_blocks = 7", "n_resnet_blocks = 1")
     cfg = tmp_path / "config.toml"
     cfg.write_text(text)
-    train.main([str(cfg), "--device", "cpu", "--steps", "1", "--ada-p", "0.6"])
+    train.main([str(cfg), "--device", "cpu", "--synthetic-steps", "1", "--ada-p", "0.6"])
     line = json.loads(capsys.readouterr().out.splitlines()[0])
     assert line["path_step"] and line["path_loss"] > 0
     assert os.environ["CUBLAS_WORKSPACE_CONFIG"] == CUBLAS_WORKSPACE_CONFIG

@@ -612,7 +612,7 @@ def test_train_cli_runs_on_the_cpu(tmp_path, capsys):
     text = text.replace("n_resnet_blocks = 7", "n_resnet_blocks = 1")
     cfg = tmp_path / "config.toml"
     cfg.write_text(text + "\n[tpu]\npath_interval = 2\n")
-    train.main([str(cfg), "--device", "cpu", "--steps", "2", "--ada-p", "0.6"])
+    train.main([str(cfg), "--device", "cpu", "--synthetic-steps", "2", "--ada-p", "0.6"])
     lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
     assert [ln["step"] for ln in lines] == [0, 1]
     assert [ln["path_step"] for ln in lines] == [True, False]

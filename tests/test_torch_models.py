@@ -351,12 +351,14 @@ def test_port_imports_no_jax():
 
 def test_port_sources_never_name_the_jax_package():
     """Source guard: no later change may re-couple the port to the
-    reference. Scans the port's Python and CUDA sources and chip_smoke.py."""
+    reference. Scans the port's Python and CUDA sources, chip_smoke.py and
+    the port's training-dynamics script."""
     needles = ("import jax", "from jax", "flax", "one_to_many_gan_tpu")
     files = [
         *sorted((REPO / "one_to_many_gan_torch").rglob("*.py")),
         *sorted((REPO / "one_to_many_gan_torch").rglob("*.cu")),
         REPO / "chip_smoke.py",
+        REPO / "scripts" / "train_dynamics_torch.py",
     ]
     hits = [
         f"{path.relative_to(REPO)}:{i}: {line.strip()}"

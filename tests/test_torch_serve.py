@@ -231,7 +231,7 @@ def test_error_paths_and_reload(setup):
     req = urllib.request.Request(f"{base}/reload", data=b"", method="POST")
     with pytest.raises(urllib.error.HTTPError) as exc_info:
         urllib.request.urlopen(req, timeout=30)
-    assert exc_info.value.code == 400
+    assert exc_info.value.code == 400  # an artifact-backed engine does not reload
     assert "immutable artifact" in json.loads(exc_info.value.read())["error"]
     assert _get(base, "/stats")["errors"] >= 5
 
@@ -248,6 +248,8 @@ def test_engine_without_device_raises_on_a_host_without_cuda(setup):
 def test_fresh_weights_warn_and_warmup_runs_every_shape(setup):
     with pytest.warns(UserWarning, match="fresh weights from seed 0"):
         engine = port_serve.InferenceEngine(setup["config"], buckets=BUCKETS, device="cpu")
+    # no checkpoint of the run yet: /reload keeps the fresh weights at step 0
+    assert engine.step == 0 and engine.reload() == 0
     assert engine.warmup(max_batch=2) >= 0.0
     # 2 n buckets at batch bucket 1, and again at batch bucket 2
     assert engine.device_calls == 4
