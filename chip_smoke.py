@@ -1,6 +1,7 @@
 """Drive the PyTorch port on one NVIDIA GPU, end to end: the 1->N serving
-path, the discriminator phase of training, the fused training step and
-the training run (the Trainer: data, logs, checkpoints, resume).
+path, the discriminator phase of training, the fused training step, the
+training run (the Trainer: data, logs, checkpoints, resume) and the
+production config's training options (EMA, lazy R1, split phases).
 
     python3 chip_smoke.py
 
@@ -12,13 +13,15 @@ started together), then runs, in order:
 1. environment: the card's name and power limit, torch and CUDA
    versions, the kernel build time;
 2. the instance-norm kernel against its plain PyTorch version at the
-   serving shapes, at the 12 sites of one D phase (phase 8) and at the
-   30 of one fused step (phase 11), float32 and bfloat16, with the
+   serving shapes, at the 12 sites of one D phase (phase 8), at the 30
+   of one fused step (phase 11) and at the 32 of one step of the
+   production config (phase 15), float32 and bfloat16, with the
    kernel's plan, a second launch that must be bitwise equal, the
    kernel's, the plain version's, the library call's and the memory
-   bound's times, and their sums per encode, per D step and per fused
-   step; and a bfloat16 site of |mean| / std ~ 10^3, where the moment and
-   the centred variance give different outputs, in every block layout;
+   bound's times, and their sums per encode, per D step, per fused step
+   and per production step; and a bfloat16 site of |mean| / std ~ 10^3,
+   where the moment and the centred variance give different outputs, in
+   every block layout;
 3. the HTTP server of ``configs/default.toml`` at full width (512x256,
    float32, fresh weights from seed 0): ``/generate`` at n = 8, 32, 64,
    zip and npy, a concurrent burst, ``/healthz`` and ``/stats``, with the
@@ -29,7 +32,8 @@ started together), then runs, in order:
    ``torch.profiler``, its kernels ranked by device time and the share
    of the request's wall time the device was busy;
 7. the warp kernel against its plain version at the D phase's
-   [16, 256, 256] and the default config's [4, 512, 256], float32 and
+   [16, 256, 256], the default config's [4, 512, 256] and the production
+   config's [8, 512, 512], float32 and
    bfloat16, antialias on and off, on the coordinates and widths of
    ADA draws at p = 0.9, with the kernel's, the plain version's,
    ``F.grid_sample``'s (antialias off, float32) and the bound's times;
@@ -86,7 +90,26 @@ started together), then runs, in order:
    (c) the run's artifact and its checkpoint behind two engines give the
    same images bitwise; (b) under ``deterministic_cuda_kernels``, 16
    steps in one run and as 8 + a resume to 16: the two checkpoints
-   bitwise equal.
+   bitwise equal;
+15. the production config, ``configs/tpu_v5e8_512.toml`` (512x512, EMA,
+   lazy R1, split phases), as one data-parallel replica on one card
+   (``presets.write_one_card_config``; each override printed), its
+   schedule cut to 32 steps: (a) 18 bare steps on synthetic batches
+   without deterministic kernels, each phase timed and its peak memory
+   read, the launches of each phase exact (D: 2 warps and 13 instance
+   norms, 16 on an R1 step; G: 1 warp, 1 warp backward, 19 instance
+   norms), then ``g_loss_split``'s G phase on a path step (29 instance
+   norms) and another, and the EMA update's device time; (b) one float32
+   R1 term at 256x256, batch 4, card and CPU against float64 with the
+   kinks pinned; (c) under deterministic kernels, the ``Trainer`` on
+   512x512 folders: 16 steps, a server, a resume to 32 with ``/reload``
+   and ``/healthz`` (``"ema": true``), the launches of every step exact,
+   the log, FID/KID lines, grids and 64 validation images; the artifact
+   (``__ema__`` true, its generator the checkpoint's EMA bitwise, its
+   engine's images the checkpoint's); the training CLI on the config's
+   copy for 32 uninterrupted steps, its ``32.tar`` bitwise the resumed
+   run's; and the fused step in groups of 8 for 16 steps, its ``16.tar``
+   bitwise the split run's.
 
 Any failed check raises, and the script exits non-zero. Before its last
 line it prints one JSON line ``{"kernels": [...]}``; its last line is
@@ -154,8 +177,10 @@ KERNEL_SOURCES = ("instance_norm", "warp")  # csrc/<name>.cu
 WARP_TOL_F32 = 2e-6
 WARP_TOL_BF16_SUM = 2.0**-19
 WARP_TOL_BF16_ABS = 0.05
-# The warp's shapes: the D phase's (bench config) and the default config's.
-WARP_SHAPES = ((16, 256, 256), (4, 512, 256))
+# The warp's shapes: the D phase's (bench config), the default config's and
+# the production config's on one card (phase 15: every warp of its step,
+# forward and backward, is [8, 512, 512]).
+WARP_SHAPES = ((16, 256, 256), (4, 512, 256), (8, 512, 512))
 # H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet), for
 # the warp's operations bound.
 F32_FLOP_PER_S = 67e12
@@ -257,6 +282,52 @@ T_STEPS, T_LOG, T_CKPT, T_GROUP, T_PROFILE_STEP = 32, 8, 16, 8, 24
 T_TRAIN_IMAGES, T_TEST_IMAGES = 64, 16
 T_EVAL_IMAGES, T_EVAL_BATCH = 64, 32
 T_ENGINE_N = 8
+# Phase 15: the production config, configs/tpu_v5e8_512.toml (512x512,
+# 1 channel, min_latent 64: 3 downsamples, channels 64 -> 512, 7 resnet
+# and 7 style blocks, w_dim 6, bf16, path interval 8, EMA 0.999, R1
+# gamma 10 every 16 steps, split phases), as one data-parallel replica on
+# one card (presets.write_one_card_config: data_parallel 4 -> 1,
+# spatial_parallel 2 -> 1, batch 32 -> 8, native_loader -> false), on
+# image folders of 64 train and 16 test images a domain, with its schedule
+# cut to 32 steps (logs every 8, checkpoints every 16 with 64 validation
+# images), so that R1 runs at steps 0 and 16 and the path term at 0, 8,
+# 16 and 24. Its instance norms, (B, C, H, W, relu): the encoder's 10
+# sites (stem, 3 down convs at their input's size, 3 resnet blocks x 2),
+# the trunk's 3 (254^2, 126^2, 62^2; LeakyReLU follows).
+PROD_CONFIG = ROOT / "configs" / "tpu_v5e8_512.toml"
+P_SIZE, P_BATCH, P_INTERVAL, P_R1_INTERVAL = 512, 8, 8, 16
+_ENCODE_512 = ([(64, 512, 512, True), (128, 512, 512, True), (256, 256, 256, True),
+                (512, 128, 128, True)] + [(512, 64, 64, True), (512, 64, 64, False)] * 3)
+_TRUNK_512 = [(128, 254, 254, False), (256, 126, 126, False), (512, 62, 62, False)]
+# D phase: the generator's encode at B, the discriminator on the packed 2B.
+P_D_IN_SITES = ([(P_BATCH, *s) for s in _ENCODE_512]
+                + [(2 * P_BATCH, *s) for s in _TRUNK_512])
+# G phase: the encode at 2B; the extractor on the marks, D on the augmented
+# translations and the extractor on the translations, at B.
+P_G_IN_SITES = ([(2 * P_BATCH, *s) for s in _ENCODE_512]
+                + [(P_BATCH, *s) for s in _TRUNK_512] * 3)
+# An R1 step adds D on the reals at B; a path step under g_loss_split adds
+# the path leg's encode at 2B.
+P_R1_IN_SITES = [(P_BATCH, *s) for s in _TRUNK_512]
+P_SPLIT_IN_SITES = [(2 * P_BATCH, *s) for s in _ENCODE_512]
+P_STEP_IN_SITES = P_D_IN_SITES + P_G_IN_SITES
+P_D_WARPS, P_G_WARPS, P_G_WARP_BWDS = 2, 1, 1
+# Bare steps (phase 15a): 18 from seed 0 at ADA p 0.6, steps 0 and 1 warm
+# the card; steps 2-17 are two path intervals with one R1 step (16).
+P_BARE_STEPS, P_BARE_WARMUP = 18, 2
+P_STEPS, P_LOG, P_CKPT, P_EVAL_IMAGES = 32, 8, 16, 64
+P_EMA_REPS = 20
+# Card against CPU, one float32 R1 term (batch 4, 256x256, TF32 off) and
+# its gradient in every discriminator parameter, against a float64 pass on
+# the CPU with the float64 pass's kink pattern pinned (as phase 12). The
+# penalty is a sum of squared input gradients: limit 1e-4 relative (phase
+# 9's D loss read 9.3e-8). Its parameter gradients are second derivatives,
+# each a sum of products of first-order terms: limit 1e-3 of each leaf's
+# norm, twice phase 9's first-order limit (5e-4).
+R1_CPU_BATCH, R1_SIZE, R1_GAMMA = 4, 256, 10.0
+R1_LOSS_RTOL = 1e-4
+R1_GRAD_PINNED_RTOL = 1e-3
+R1_MAX_FLIP_SHARE = 3e-6
 
 
 def log(msg: str) -> None:
@@ -334,7 +405,7 @@ def phase_kernels(torch) -> dict:
     flush = torch.zeros(128 * 2**20, dtype=torch.uint8, device="cuda")
     serve_sites = [(b, c, h, w, relu) for b in (1, 4) for c, h, w in IN_SHAPES
                    for relu in (False, True)]
-    sites = serve_sites + sorted(set(FUSED_IN_SITES) - set(serve_sites))
+    sites = serve_sites + sorted(set(FUSED_IN_SITES + P_STEP_IN_SITES) - set(serve_sites))
     cases = []
     for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for b, c, h, w, relu in sites:
@@ -391,6 +462,8 @@ def phase_kernels(torch) -> dict:
               for dtype_name in IN_TOL}
     fused = {dtype_name: per_sites(dtype_name, FUSED_IN_SITES, "fused step")
              for dtype_name in IN_TOL}
+    prod = {dtype_name: per_sites(dtype_name, P_STEP_IN_SITES, f"{P_SIZE}^2 step")
+            for dtype_name in IN_TOL}
     slower = [{k: c[k] for k in ("dtype", "b", "c", "h", "w", "relu", "over_library")}
               for c in cases if c["over_library"] > 1]
     log(f"IN sites slower than F.instance_norm: {len(slower)} of {len(cases)} {slower}")
@@ -398,7 +471,8 @@ def phase_kernels(torch) -> dict:
     log(f"phase 2 ok: {len(cases)} kernel cases and the bf16 high-|mean| site in "
         f"{len(high_mean['layouts'])} layouts within tolerance, repeats bitwise equal")
     return {"cases": cases, "per_encode": encode, "per_d_step": d_step,
-            "per_fused_step": fused, "slower_than_library": slower, "high_mean_bf16": high_mean}
+            "per_fused_step": fused, "per_production_step": prod, "slower_than_library": slower,
+            "high_mean_bf16": high_mean}
 
 
 def high_mean_planes(torch, planes: int, device, seed: int = 0):
@@ -2015,6 +2089,503 @@ def _exact_resume(torch, root: Path) -> dict:
     return {"tensors": n_tensors, "elements": n_elems, "differ": differ, "full_run_s": full_s}
 
 
+# ---------------------------------------------------------------- phase 15
+
+
+def production_config(root: Path, run: str, **values):
+    """Phase 15's config: ``configs/tpu_v5e8_512.toml`` as one card's copy
+    (``presets.write_one_card_config``), on the folders under ``root``, run
+    ``run``, with phase 15's schedule and ``values`` (other keys of the
+    file). -> (config, the keys changed with their new values)."""
+    from one_to_many_gan_torch.config import load_config
+    from one_to_many_gan_torch.presets import write_one_card_config
+
+    path = root / f"{run}.toml"
+    schedule = {"shoeprint_data_dir": str(root / "prints"),
+                "shoemark_data_dir": str(root / "marks"), "checkpoint_directory": str(root),
+                "training_run": run, "training_steps": P_STEPS, "log_interval": P_LOG,
+                "checkpoint_interval": P_CKPT, "n_evaluation_images": P_EVAL_IMAGES}
+    changes = write_one_card_config(PROD_CONFIG, path, **{**schedule, **values})
+    return load_config(path), changes
+
+
+def _cuda_ms(torch, fn, reps: int) -> float:
+    """Median device time of ``fn()`` over ``reps`` calls (CUDA events)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _phase_counts(counters, c0) -> list:
+    return [c.launches - k for c, k in zip(counters, c0, strict=True)]
+
+
+def _production_bare_steps(torch, config) -> dict:
+    """(a) P_BARE_STEPS steps of the production config on synthetic batches
+    (ADA p 0.6), without deterministic kernels, each phase synchronised
+    and timed on its own: step ms of the R1 step (16, also a path step),
+    the path step (8) and the other steps; each phase's peak memory; the
+    exact launches of each phase; then one G phase on a path step and one
+    on another step with ``g_loss_split``, their peaks beside the joint
+    backward's; and the EMA update's device time."""
+    from one_to_many_gan_torch import train
+    from one_to_many_gan_torch.core.train_step import (
+        Batches,
+        draw_step,
+        ema_update,
+        make_d_phase,
+        make_g_phase,
+        synthetic_batch,
+    )
+    from one_to_many_gan_torch.ops.cuda import fused_instance_norm, warp, warp_bwd
+
+    counters = (warp, warp_bwd, fused_instance_norm)
+    models, state, gen = train.setup(config, seed=0, ada_p=D_ADA_P, device="cuda")
+    check(state.ema_generator is not None, "the production config's state has no EMA")
+    d_phase, g_phase = make_d_phase(config, models), make_g_phase(config, models)
+
+    def batches():
+        return Batches(*(synthetic_batch(gen, P_BATCH, (P_SIZE, P_SIZE), 1) for _ in range(4)))
+
+    def run_g(g_fn, step):
+        """One G phase at ``step``: -> (ms, peak bytes, launches, metrics)."""
+        b, draws = batches(), draw_step(gen, config, models)
+        state.step = step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        c0 = [c.launches for c in counters]
+        t0 = time.perf_counter()
+        _, m = g_fn(state, b, draws.g, state.ada.p)
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated(),
+                _phase_counts(counters, c0), m)
+
+    rows = []
+    for step in range(P_BARE_STEPS):
+        r1, path = step % P_R1_INTERVAL == 0, step % P_INTERVAL == 0
+        b, draws = batches(), draw_step(gen, config, models)
+        p_used = state.ada.p
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        c0 = [c.launches for c in counters]
+        t0 = time.perf_counter()
+        state, dm = d_phase(state, b.d_shoeprints, b.d_shoemarks, draws.d)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        d_peak = torch.cuda.max_memory_allocated()
+        d_counts = _phase_counts(counters, c0)
+        torch.cuda.reset_peak_memory_stats()
+        c0 = [c.launches for c in counters]
+        state, gm = g_phase(state, b, draws.g, p_used)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        g_counts = _phase_counts(counters, c0)
+        m = {k: v.item() for k, v in {**dm, **gm}.items()}
+        rows.append({"step": step, "r1": r1, "path": path, "d_ms": (t1 - t0) * 1e3,
+                     "g_ms": (t2 - t1) * 1e3, "ms": (t2 - t0) * 1e3, "d_peak": d_peak,
+                     "g_peak": torch.cuda.max_memory_allocated(), "d_launches": d_counts,
+                     "g_launches": g_counts, **m})
+        want_d = [P_D_WARPS, 0, len(P_D_IN_SITES) + (len(P_R1_IN_SITES) if r1 else 0)]
+        want_g = [P_G_WARPS, P_G_WARP_BWDS, len(P_G_IN_SITES)]
+        check(d_counts == want_d and g_counts == want_g,
+              f"bare step {step}: D launches {d_counts} (want {want_d}), G {g_counts} "
+              f"(want {want_g})")
+        check(all(np.isfinite(v) for k, v in m.items() if k != "ada_p"),
+              f"bare step {step}: a metric is not finite: {m}")
+        check(m["path_loss"] > 0 if path else m["path_loss"] == 0,
+              f"bare step {step}: path_loss {m['path_loss']}")
+    timed = rows[P_BARE_WARMUP:]
+    kinds = {"r1_path": [r for r in timed if r["r1"]],
+             "path": [r for r in timed if r["path"] and not r["r1"]],
+             "other": [r for r in timed if not r["path"]]}
+    med = {k: {f: statistics.median(r[f] for r in v) for f in ("ms", "d_ms", "g_ms")}
+           for k, v in kinds.items()}
+    mean = statistics.fmean(r["ms"] for r in timed)
+    peaks = {"d_r1": max(r["d_peak"] for r in kinds["r1_path"]),
+             "d": max(r["d_peak"] for r in timed if not r["r1"]),
+             "g_path_joint": max(r["g_peak"] for r in timed if r["path"]),
+             "g_other": max(r["g_peak"] for r in kinds["other"])}
+
+    # g_loss_split: the same state, a path step and another step
+    split_config = copy.deepcopy(config)
+    split_config["tpu"]["g_loss_split"] = True
+    g_split = make_g_phase(split_config, models)
+    split = {}
+    for kind, step in (("path", 3 * P_INTERVAL), ("other", 3 * P_INTERVAL + 1)):
+        ms, peak, counts, m = run_g(g_split, step)
+        want = [P_G_WARPS, P_G_WARP_BWDS,
+                len(P_G_IN_SITES) + (len(P_SPLIT_IN_SITES) if kind == "path" else 0)]
+        check(counts == want, f"g_loss_split {kind} step: launches {counts} (want {want})")
+        check(all(np.isfinite(v.item()) for v in m.values()), f"g_loss_split {kind}: {m}")
+        split[kind] = {"ms": ms, "peak": peak, "launches": counts}
+    peaks["g_path_split"] = split["path"]["peak"]
+
+    def r1_d_phase():
+        b, draws = batches(), draw_step(gen, config, models)
+        state.step = 2 * P_R1_INTERVAL
+        d_phase(state, b.d_shoeprints, b.d_shoemarks, draws.d)
+
+    r1_profile = profile_call(torch, r1_d_phase, f"D phase of an R1 step ({P_SIZE}x{P_SIZE}, "
+                              f"batch {P_BATCH}, bf16)")
+    ema_ms = _cuda_ms(torch, lambda: ema_update(state.ema_generator, state.generator,
+                                                config["tpu"]["ema_decay"]), P_EMA_REPS)
+    # e and p read once, e written once (the three ops move 7x the parameters)
+    ema_bytes = 3 * sum(p.numel() * p.element_size() for p in state.generator.parameters())
+    gib = {k: v / 2**30 for k, v in peaks.items()}
+    log(f"production steps ({P_SIZE}x{P_SIZE}, batch {P_BATCH}, bf16, path interval "
+        f"{P_INTERVAL}, R1 every {P_R1_INTERVAL}, EMA, not deterministic; steps "
+        f"{P_BARE_WARMUP}-{P_BARE_STEPS - 1}): median step ms R1 + path "
+        f"{med['r1_path']['ms']:.2f} (D {med['r1_path']['d_ms']:.2f}, G "
+        f"{med['r1_path']['g_ms']:.2f}), path {med['path']['ms']:.2f} (D "
+        f"{med['path']['d_ms']:.2f}, G {med['path']['g_ms']:.2f}), other "
+        f"{med['other']['ms']:.2f} (D {med['other']['d_ms']:.2f}, G {med['other']['g_ms']:.2f}); "
+        f"mean {mean:.2f} ms = {P_BATCH / mean * 1e3:.2f} images/s")
+    log("  peak memory GiB: " + ", ".join(f"{k} {v:.2f}" for k, v in gib.items())
+        + f"; g_loss_split G phase ms: path {split['path']['ms']:.2f}, other "
+        f"{split['other']['ms']:.2f} (joint: {med['path']['g_ms']:.2f}, "
+        f"{med['other']['g_ms']:.2f})")
+    log(f"  EMA update {ema_ms:.4f} ms ({ema_bytes / 2**20:.1f} MiB read and written; bound "
+        f"{ema_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms); launches per phase: D "
+        f"{rows[P_BARE_WARMUP]['d_launches']} (R1 step {rows[P_R1_INTERVAL]['d_launches']}), "
+        f"G {rows[P_BARE_WARMUP]['g_launches']}, split path G {split['path']['launches']}")
+    return {"rows": rows, "median": med, "mean_ms": mean, "images_per_s": P_BATCH / mean * 1e3,
+            "peak_bytes": peaks, "g_loss_split": split, "r1_d_profile": r1_profile,
+            "ema_ms": ema_ms,
+            "ema_bound_ms": ema_bytes / HBM_BYTES_PER_S * 1e3}
+
+
+def _r1_card_vs_cpu(torch) -> dict:
+    """(b) One float32 R1 term and its gradients in D's parameters, card and
+    CPU, against a float64 pass on the CPU whose kink pattern both float32
+    passes then also run pinned."""
+    from one_to_many_gan_torch.device import disable_tf32
+    from one_to_many_gan_torch.losses import r1_penalty
+    from one_to_many_gan_torch.models import Discriminator
+    from one_to_many_gan_torch.ops import activations
+
+    disable_tf32()
+    gen = torch.Generator().manual_seed(5)
+    reals = torch.rand((R1_CPU_BATCH, 1, R1_SIZE, R1_SIZE), generator=gen) * 2 - 1
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        disc = Discriminator(1)
+    disc64 = Discriminator(1, dtype=torch.float64)
+    disc64.load_state_dict(disc.state_dict())
+    names = [n for n, _ in disc.named_parameters()]
+
+    def run(d, x, pin=None):
+        params = list(d.parameters())
+        block = activations.pin(pin) if pin is not None else activations.record()
+        with block as pattern:
+            loss = (R1_GAMMA / 2.0) * r1_penalty(d, x)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        return {"loss": loss.item(), "pattern": pattern, "grads": {
+            n: None if g is None else g.double().cpu() for n, g in zip(names, grads, strict=True)}}
+
+    t0 = time.perf_counter()
+    ref = run(disc64, reals.double())
+    f64_s = time.perf_counter() - t0
+    masks = ref["pattern"].masks
+    n_inputs = sum(m.numel() for m in masks)
+    card_disc = copy.deepcopy(disc).cuda()
+    runs = {"card": run(card_disc, reals.cuda(), masks), "cpu": run(disc, reals, masks)}
+    unpinned = {"card": run(card_disc, reals.cuda()), "cpu": run(disc, reals)}
+    check(not torch.backends.cudnn.allow_tf32, "TF32 is on for the float32 card run")
+    live = [n for n in names if ref["grads"][n] is not None]
+    check(set(names) - set(live) == {"head.bias"},
+          f"R1 gradients: {sorted(set(names) - set(live))} have none (want only head.bias)")
+    total = torch.sqrt(sum(ref["grads"][n].square().sum() for n in live)).item()
+
+    def rel(a):
+        return {n: ((a["grads"][n] - ref["grads"][n]).norm()
+                    / ref["grads"][n].norm().clamp_min(1e-30)).item() for n in live}
+
+    out = {"loss_float64": ref["loss"], "float64_s": f64_s, "activation_inputs": n_inputs}
+    for label, r in runs.items():
+        out[label] = {"loss": r["loss"], "loss_rel": abs(r["loss"] - ref["loss"]) / ref["loss"],
+                      "flips": r["pattern"].n_flips(), "grad_rel_pinned": rel(r),
+                      "grad_rel_unpinned": rel(unpinned[label])}
+    log(f"R1 card vs CPU ({R1_SIZE}x{R1_SIZE}, batch {R1_CPU_BATCH}, float32, TF32 off, gamma "
+        f"{R1_GAMMA}): term float64 {ref['loss']:.6g}, card {runs['card']['loss']:.6g} (rel "
+        f"{out['card']['loss_rel']:.3g}), CPU {runs['cpu']['loss']:.6g} (rel "
+        f"{out['cpu']['loss_rel']:.3g}; tol {R1_LOSS_RTOL}); flips against float64 of "
+        f"{n_inputs} activation inputs: card {out['card']['flips']}, CPU "
+        f"{out['cpu']['flips']}; float64 pass {f64_s:.1f} s")
+    log("  gradient error per leaf against float64, relative to its norm (leaves with "
+        "gradient 0 in exact arithmetic: absolute, relative to the whole gradient's norm):")
+    log(f"  {'':38s}" + "".join(f"{n:>15s}" for n in live))
+    for label in runs:
+        for kind in ("pinned", "unpinned"):
+            rel = out[label]["grad_rel_" + kind]
+            log(f"  {label + ', ' + kind:38s}" + "".join(
+                f"{rel[n] * ref['grads'][n].norm().item() / total if _zero_grad_leaf(n) else rel[n]:15.3g}"
+                for n in live))
+    for label in runs:
+        check(out[label]["loss_rel"] <= R1_LOSS_RTOL, f"R1 term: {label} {out[label]}")
+        check(out[label]["flips"] <= R1_MAX_FLIP_SHARE * n_inputs,
+              f"R1: {label} flips {out[label]['flips']} of {n_inputs}")
+        for n in live:
+            err = out[label]["grad_rel_pinned"][n]
+            if _zero_grad_leaf(n):  # 0 in exact arithmetic: absolute, of the whole norm
+                worst = runs[label]["grads"][n].norm().item()
+                check(worst <= 1e-4 * total, f"R1 {label} {n}: gradient {worst:.3g} is not ~0")
+                continue
+            check(err <= R1_GRAD_PINNED_RTOL, f"R1 {label} {n}: {err:.3g} of its norm off float64")
+    return out
+
+
+def _production_run(torch, root: Path) -> dict:
+    """(c) The main path: the Trainer on the production config with
+    deterministic kernels: 16 steps, a server on the checkpoint, a new
+    Trainer that resumes to 32 (``/reload`` then answers 32), the launches
+    of every step exact; the artifact's ``__ema__`` and bits against the
+    checkpoint's EMA generator; the training CLI on the config's copy for
+    32 uninterrupted steps, its ``32.tar`` bitwise equal to the resumed
+    run's, EMA included; and the config without ``split_phases`` (groups
+    of 8 fused steps) for 16 steps, its ``16.tar`` bitwise the split run's."""
+    from one_to_many_gan_torch import serve
+    from one_to_many_gan_torch.convert import from_jax_params
+    from one_to_many_gan_torch.core.state import Models
+    from one_to_many_gan_torch.core.trainer import Trainer
+    from one_to_many_gan_torch.data import _load_image
+    from one_to_many_gan_torch.export import export_inference_artifact, load_inference_artifact
+    from one_to_many_gan_torch.migrate import EMA_KEY, load_inference_weights
+    from one_to_many_gan_torch.ops.cuda import fused_instance_norm, warp, warp_bwd
+
+    counters = (warp, warp_bwd, fused_instance_norm)
+    config, _ = production_config(root, "a", deterministic_cuda_kernels=True)
+    run_dir = root / "a"
+    per_step, summaries, h2d = [], [], []
+    step_ms = []
+    printed = io.StringIO()
+
+    def tapped(trainer):
+        step_fn = trainer.train_step
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step_fn(*args)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        trainer.train_step = timed
+        return trainer
+
+    for c in counters:
+        c.launches = 0
+    with contextlib.redirect_stdout(_Tee(sys.stdout, printed)):
+        first = tapped(_trainer_with_taps(torch, config, counters, per_step, summaries, h2d))
+        check(first.steps_per_call == 1, f"split_phases ran groups of {first.steps_per_call}")
+        t0 = time.perf_counter()
+        first.run(max_steps=P_CKPT)
+        first_s = time.perf_counter() - t0
+        timings_16 = dict(first.timings)
+        del first
+        torch.cuda.empty_cache()
+        engine = serve.InferenceEngine(config, buckets=(T_ENGINE_N,))
+        check(engine.step == P_CKPT and engine.ema, f"the server restored step {engine.step}, "
+              f"EMA {engine.ema}")
+        httpd = serve.make_server(engine, host="127.0.0.1", port=0)
+        server = threading.Thread(target=httpd.serve_forever, daemon=True)
+        server.start()
+        try:
+            second = tapped(_trainer_with_taps(torch, config, counters, per_step, summaries,
+                                               h2d))
+            check(second.start_step == P_CKPT, f"the resume starts at {second.start_step}")
+            t0 = time.perf_counter()
+            second.run()
+            second_s = time.perf_counter() - t0
+            launches = dict(zip(("warp_fwd", "warp_bwd", "instance_norm"),
+                                (c.launches for c in counters), strict=True))
+            reload = _post_reload(httpd.server_address[1])
+            health = _get(httpd.server_address[1], "/healthz")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            httpd.batcher.close()
+            server.join(timeout=60)
+    check(not server.is_alive(), "the server thread did not stop")
+    check(reload == {"status": "ok", "step": P_STEPS}, f"/reload answered {reload}")
+    check(health.get("ema") is True and health.get("step") == P_STEPS, f"/healthz {health}")
+    text = printed.getvalue()
+    check(f"Resumed from checkpoint at step {P_CKPT}" in text.splitlines(),
+          "the resumed Trainer did not print 'Resumed from checkpoint at step 16'")
+    want = [[P_D_WARPS + P_G_WARPS, P_G_WARP_BWDS,
+             len(P_STEP_IN_SITES) + (len(P_R1_IN_SITES) if s % P_R1_INTERVAL == 0 else 0)]
+            for s in range(P_STEPS)]
+    bad = [(k, n, w) for k, (n, w) in enumerate(zip(per_step, want, strict=False)) if n != w]
+    check(len(per_step) == P_STEPS and not bad,
+          f"{len(per_step)} Trainer steps; launches off the reckoning at {bad[:4]}")
+    pattern = log_line_pattern(torch, P_STEPS)
+    lines = (run_dir / "log").read_text().splitlines()
+    train_lines = [ln for ln in lines if ln.startswith("Step:")]
+    fid_lines = [ln for ln in lines if ln.startswith("Step ")]
+    check([ln.split("/")[0] for ln in train_lines]
+          == [f"Step: {s}" for s in range(P_LOG, P_STEPS + 1, P_LOG)]
+          and all(pattern.fullmatch(ln) for ln in train_lines), f"log lines {train_lines}")
+    check(len(fid_lines) == 2 and all(
+        ln.startswith(f"Step {s} | fid: ") and ln.endswith("[random_projection_v1]")
+        for ln, s in zip(fid_lines, (P_CKPT, P_STEPS), strict=True)), f"FID lines {fid_lines}")
+    records = [json.loads(ln) for ln in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    check(all(np.isfinite(v) for r in records for k, v in r.items()
+              if k not in ("step", "fid_extractor")), "a logged value is not finite")
+    grids = sorted(p.name for p in (run_dir / "images").iterdir())
+    check(grids == [f"{kind}_{s}.png" for kind in ("decoding", "translation")
+                    for s in (P_CKPT, P_STEPS)], f"grids {grids}")
+    n_val = len(list((run_dir / "val").glob("*.png")))
+    check(n_val == P_EVAL_IMAGES, f"{n_val} validation images")
+    tar = run_dir / "models" / f"{P_STEPS}.tar"
+    tar_mib = tar.stat().st_size / 2**20
+    ckpt = _load_ckpt(torch, tar)
+    check(EMA_KEY in ckpt, "the checkpoint carries no EMA generator")
+    ema_moved = max((ckpt[EMA_KEY][k] - ckpt["generator_state_dict"][k]).abs().max().item()
+                    for k in ckpt[EMA_KEY])
+
+    # the artifact: the EMA weights, and the same bits as the checkpoint's EMA
+    t0 = time.perf_counter()
+    art = export_inference_artifact(config, root / "model.npz")
+    export_s = time.perf_counter() - t0
+    params_g, params_m, step, ema = load_inference_artifact(art)
+    check(ema and step == P_STEPS, f"the artifact says step {step}, __ema__ {ema}")
+    from_art = from_jax_params(Models(config, device="cpu"), params_g, params_m)
+    from_ckpt = Models(config, device="cpu")
+    check(load_inference_weights(ckpt, from_ckpt), "the checkpoint served no EMA")
+    same = all(torch.equal(p, q) for p, q in zip(from_art.generator.parameters(),
+                                                 from_ckpt.generator.parameters(), strict=True))
+    check(same, "the artifact's generator is not the checkpoint's EMA generator")
+    engines = [serve.InferenceEngine(config, buckets=(T_ENGINE_N,), artifact=art),
+               serve.InferenceEngine(config, buckets=(T_ENGINE_N,))]
+    source = _load_image(root / "prints" / "test" / "00000.png", (P_SIZE, P_SIZE), 1)
+    outs = [e.generate(source, T_ENGINE_N, seed=0) for e in engines]
+    check(outs[0].shape == (T_ENGINE_N, P_SIZE, P_SIZE, 1) and np.array_equal(*outs),
+          "the artifact's engine and the checkpoint's differ")
+    del engines
+
+    # the CLI on the production config's copy, 32 uninterrupted steps: its
+    # 32.tar bitwise the paused and resumed run's, EMA included
+    from one_to_many_gan_torch import train as train_cli
+
+    cli_path = root / "b.toml"
+    _, cli_changes = production_config(root, "b", deterministic_cuda_kernels=True)
+    t0 = time.perf_counter()
+    train_cli.main([str(cli_path)])
+    cli_s = time.perf_counter() - t0
+    other = _load_ckpt(torch, root / "b" / "models" / f"{P_STEPS}.tar")
+    differ, n_tensors, n_elems = _ckpt_differences(torch, ckpt, other)
+    # split_phases against the fused step: 16 steps in groups of 8
+    fused_config, _ = production_config(root, "c", deterministic_cuda_kernels=True,
+                                        split_phases=False, steps_per_call=P_LOG,
+                                        training_steps=P_CKPT)
+    t0 = time.perf_counter()
+    fused = Trainer(fused_config, verbose=False)
+    check(fused.steps_per_call == P_LOG, f"the fused run's groups: {fused.steps_per_call}")
+    fused.run()
+    fused_s = time.perf_counter() - t0
+    del fused
+    split_differ, split_tensors, _ = _ckpt_differences(
+        torch, _load_ckpt(torch, run_dir / "models" / f"{P_CKPT}.tar"),
+        _load_ckpt(torch, root / "c" / "models" / f"{P_CKPT}.tar"))
+    check(torch.are_deterministic_algorithms_enabled(), "the runs had no deterministic kernels")
+
+    at = dict(summaries)
+    window_ms = (at[P_STEPS] - at[P_STEPS - P_LOG]) * 1e3 / P_LOG
+    log(f"production Trainer (deterministic kernels, split phases): steps {P_STEPS - P_LOG}-"
+        f"{P_STEPS - 1} {window_ms:.2f} ms a step = {P_BATCH / window_ms * 1e3:.2f} images/s "
+        f"(log line to log line); per step (synchronised) R1 + path "
+        + ", ".join(f"{step_ms[s]:.1f}" for s in (0, P_R1_INTERVAL))
+        + f"; path {step_ms[P_INTERVAL]:.1f}, {step_ms[3 * P_INTERVAL]:.1f}; other median "
+        f"{statistics.median(step_ms[s] for s in range(P_STEPS) if s % P_INTERVAL):.1f} ms; "
+        f"runs {first_s:.1f} + {second_s:.1f} s")
+    log(f"  checkpoint at 16: grids {timings_16['image'] * 1e3:.1f} ms, val_checkpoint "
+        f"{timings_16['val'] * 1e3:.1f} ms, save {timings_16['save'] * 1e3:.1f} ms; at 32: "
+        f"{second.timings['image'] * 1e3:.1f}, {second.timings['val'] * 1e3:.1f}, "
+        f"{second.timings['save'] * 1e3:.1f} ms; {P_STEPS}.tar {tar_mib:.2f} MiB; EMA off the "
+        f"generator by up to {ema_moved:.3g}")
+    log(f"  artifact {art.stat().st_size / 2**20:.2f} MiB in {export_s * 1e3:.1f} ms, "
+        f"__ema__ {ema}, its generator the checkpoint's EMA bitwise, its engine's {T_ENGINE_N} "
+        f"images the checkpoint's bitwise; /reload -> {reload}; /healthz ema "
+        f"{health.get('ema')}; launches {launches}")
+    log(f"  exact resume: 16 + a resume to 32 against `python -m one_to_many_gan_torch.train` "
+        f"on the config's copy ({', '.join(cli_changes)} changed), 32 uninterrupted steps in "
+        f"{cli_s:.1f} s: {n_tensors} tensors ({n_elems} elements) of {P_STEPS}.tar compared, "
+        f"{len(differ)} differ {differ[:8]}")
+    log(f"  split phases (groups of 1) against the fused step (groups of {P_LOG}, {fused_s:.1f} "
+        f"s): {split_tensors} tensors of {P_CKPT}.tar compared, {len(split_differ)} differ "
+        f"{split_differ[:8]}")
+    n_params = sum(len(list(getattr(second.state, m).parameters()))
+                   for m in ("generator", "discriminator", "mapping", "extractor"))
+    want_tensors = (4 * n_params + len(ckpt["image_buffer_images"]) + 2
+                    + len(list(second.state.generator.parameters())))
+    check(n_tensors == want_tensors and not differ,
+          f"{n_tensors} tensors compared (want {want_tensors}); differ: {differ[:20]}")
+    check(split_tensors > 0 and not split_differ,
+          f"split phases against the fused step: {split_tensors} tensors, differ "
+          f"{split_differ[:20]}")
+    return {"launches": launches, "per_step": per_step, "step_ms": step_ms,
+            "window_ms": window_ms, "images_per_s": P_BATCH / window_ms * 1e3,
+            "run_s": [first_s, second_s], "cli_run_s": cli_s, "fused_run_s": fused_s,
+            "split_differ": split_differ, "timings_16": timings_16,
+            "timings_32": dict(second.timings), "tar_mib": tar_mib, "ema_moved": ema_moved,
+            "artifact_mib": art.stat().st_size / 2**20, "export_s": export_s,
+            "reload": reload, "healthz": health, "compared_tensors": n_tensors,
+            "compared_elements": n_elems, "differ": differ, "log": lines}
+
+
+def phase_production(torch) -> dict:
+    """The production config on one card (module docstring, phase 15)."""
+    import tempfile
+
+    from one_to_many_gan_torch.data import write_synthetic_dataset_dirs
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_production_") as tmp:
+        root = Path(tmp)
+        config, changes = production_config(root, "a")
+        from one_to_many_gan_torch.config import load_config
+
+        source = load_config(PROD_CONFIG)
+        flat = {k: v for sec in source.values() if isinstance(sec, dict) for k, v in sec.items()}
+        out["overrides"] = {k: [str(flat.get(k)), str(v)] for k, v in changes.items()}
+        for key, (old, new) in out["overrides"].items():
+            log(f"production config override {key}: {old} -> {new}")
+        check(config["tpu"]["ema_decay"] > 0 and config["tpu"]["r1_gamma"] > 0
+              and config["tpu"]["split_phases"] and not config["tpu"]["g_loss_split"]
+              and config["tpu"]["path_interval"] == P_INTERVAL
+              and config["tpu"]["r1_interval"] == P_R1_INTERVAL
+              and config["training"]["batch_size"] == P_BATCH
+              and tuple(config["data"]["image_size"]) == (P_SIZE, P_SIZE),
+              f"the production config is not the one phase 15 reckons with: {config['tpu']}")
+        out["bare"] = _production_bare_steps(torch, config)
+        torch.cuda.empty_cache()
+        out["r1"] = _r1_card_vs_cpu(torch)
+        for domain, seed in (("prints", 0), ("marks", 9)):
+            write_synthetic_dataset_dirs(root / domain, n_train=T_TRAIN_IMAGES,
+                                         n_test=T_TEST_IMAGES, image_size=(P_SIZE, P_SIZE),
+                                         seed=seed)
+        cudnn = torch.backends.cudnn
+        flags = (torch.are_deterministic_algorithms_enabled(),
+                 torch.is_deterministic_algorithms_warn_only_enabled(), cudnn.deterministic,
+                 cudnn.benchmark)
+        try:
+            out["run"] = _production_run(torch, root)
+        finally:
+            torch.use_deterministic_algorithms(flags[0], warn_only=flags[1])
+            cudnn.deterministic, cudnn.benchmark = flags[2], flags[3]
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 15 ok in {out['wall_s']:.1f} s")
+    return out
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -2058,15 +2629,19 @@ def main() -> int:
     report["deterministic"] = phase_deterministic(torch, report["fused_step"])
     torch.cuda.empty_cache()
     report["trainer"] = phase_trainer(torch, report["fused_step"])
+    torch.cuda.empty_cache()
+    report["production"] = phase_production(torch)
 
     fused = report["fused_step"]["launches"]
     enc = report["kernels"]["per_encode"]["float32_b1"]
     f32_cases = [k for k in report["kernels"]["cases"] if k["dtype"] == "float32"]
     trained = report["trainer"]["a"]["launches"]
+    prod = report["production"]["run"]["launches"]
     in_by_phase = {"serve (phase 3)": report["serve"]["launches"],
                    "D phase (phase 8)": report["d_phase"]["in_launches"],
                    "fused step (phase 11)": fused["instance_norm"],
-                   "Trainer (phase 14)": trained["instance_norm"]}
+                   "Trainer (phase 14)": trained["instance_norm"],
+                   "production Trainer (phase 15)": prod["instance_norm"]}
     kernels = [{
         "name": "instance_norm",
         "route": "cuda",
@@ -2082,19 +2657,25 @@ def main() -> int:
         "per": "the 9 instance norms of one encode at B=1, float32, cold L2",
         "per_d_step_bfloat16": report["kernels"]["per_d_step"]["bfloat16"],
         "per_fused_step_bfloat16": report["kernels"]["per_fused_step"]["bfloat16"],
+        "per_production_step_bfloat16": report["kernels"]["per_production_step"]["bfloat16"],
         "sites_slower_than_library": len(report["kernels"]["slower_than_library"]),
         "launches_by_phase": in_by_phase,
         "checked_in": "phase 2",
     }]
 
-    def warp_case(phase: str, dtype: str, aa: bool) -> dict:
+    def warp_case(phase: str, dtype: str, aa: bool, shape=WARP_SHAPES[0]) -> dict:
         return next(c for c in report[phase]["cases"] if (c["b"], c["h"], c["w"]) ==
-                    WARP_SHAPES[0] and c["dtype"] == dtype and c["antialias"] == aa)
+                    shape and c["dtype"] == dtype and c["antialias"] == aa)
+
+    def at_512(phase: str) -> dict:
+        c = warp_case(phase, "bfloat16", True, (P_BATCH, P_SIZE, P_SIZE))
+        return {k: c[k] for k in ("kernel_ms", "plain_ms", "bound_ms", "max_abs_err")}
 
     d_case, off_case = warp_case("warp", "bfloat16", True), warp_case("warp", "float32", False)
     fwd_by_phase = {"D phase (phase 8)": report["d_phase"]["warp_launches"],
                     "fused step (phase 11)": fused["warp_fwd"],
-                    "Trainer (phase 14)": trained["warp_fwd"]}
+                    "Trainer (phase 14)": trained["warp_fwd"],
+                    "production Trainer (phase 15)": prod["warp_fwd"]}
     kernels.append({
         "name": "warp_fwd",
         "route": "cuda",
@@ -2112,6 +2693,7 @@ def main() -> int:
                "no single PyTorch call computes the antialiased warp",
         "grid_sample_ms_antialias_off_f32": off_case["library_ms"],
         "kernel_ms_antialias_off_f32": off_case["kernel_ms"],
+        "production_site_bf16_aa": at_512("warp"),
         "launches_by_phase": fwd_by_phase,
         "checked_in": "phase 7",
     })
@@ -2121,7 +2703,7 @@ def main() -> int:
         "route": "cuda",
         "source": "one_to_many_gan_torch/csrc/warp.cu",
         "replaces": WARP_BWD_REPLACES,
-        "launches": fused["warp_bwd"] + trained["warp_bwd"],
+        "launches": fused["warp_bwd"] + trained["warp_bwd"] + prod["warp_bwd"],
         "max_abs_err": max(c["max_abs_err"] for c in report["warp_bwd"]["cases"]
                            if c["dtype"] == "float32"),
         "ms": b_case["kernel_ms"],
@@ -2135,8 +2717,10 @@ def main() -> int:
         "prepass_share_warm": report["warp_bwd"]["prepass_share"]["share"],
         "grid_sampler_2d_backward_ms_antialias_off_f32": b_off["library_ms"],
         "kernel_ms_antialias_off_f32": b_off["kernel_ms"],
+        "production_site_bf16_aa": at_512("warp_bwd"),
         "launches_by_phase": {"fused step (phase 11)": fused["warp_bwd"],
-                              "Trainer (phase 14)": trained["warp_bwd"]},
+                              "Trainer (phase 14)": trained["warp_bwd"],
+                              "production Trainer (phase 15)": prod["warp_bwd"]},
         "checked_in": "phase 10",
     })
     report["wall_s"] = time.perf_counter() - t_start

@@ -4,8 +4,10 @@ Reads the same schema as the JAX package (``configs/default.toml``): the
 six reference sections plus the optional ``[tpu]`` section, whose
 defaults are filled in below. Of ``[tpu]`` the port reads ``precision``
 ("float32" or "bfloat16" activations) and, for training,
-``ada_antialias`` and ``path_interval``; ``check_training_options``
-refuses the training options it does not run yet. ``ada_pallas`` chooses between two TPU
+``ada_antialias``, ``path_interval``, ``ema_decay``, ``r1_gamma``,
+``r1_interval``, ``split_phases`` and ``g_loss_split``;
+``check_training_options`` refuses the training options it does not run
+yet. ``ada_pallas`` chooses between two TPU
 implementations of the ADA warp; the port always computes the Pallas
 kernel's numerics, so it ignores the key; ``compilation_cache_dir`` is a
 JAX compile cache, also ignored. The other keys are validated so that
@@ -120,24 +122,21 @@ def n_downsamples(config: Config) -> int:
 
 
 # [tpu] training options the port does not run yet, with their off value.
-_NOT_PORTED = {
-    "r1_gamma": 0.0, "ema_decay": 0.0, "ada_supersample": False, "g_loss_split": False,
-    "split_phases": False, "native_loader": False, "tensorboard": False,
-}
+_NOT_PORTED = {"ada_supersample": False, "native_loader": False, "tensorboard": False}
 
 
 def check_training_options(config: Config) -> None:
     """Raise ``NotImplementedError``, naming the key, for a training option
-    the port does not run yet: R1 (``r1_gamma > 0``), generator EMA
-    (``ema_decay > 0``), the 2x supersampled ADA warp (``ada_supersample``),
-    the generator loss's two accumulated sub-backwards (``g_loss_split``),
-    the D and G phases as two programs (``split_phases``), rematerialisation
-    (``remat`` other than "none"), the C++ data loader (``native_loader``),
+    the port does not run yet: the 2x supersampled ADA warp
+    (``ada_supersample``), rematerialisation (``remat`` other than "none"), the C++ data loader (``native_loader``),
     TensorBoard (``tensorboard``), and more than one device
     (``data_parallel`` other than 1 or -1, ``spatial_parallel > 1``; -1, all
     devices, is the one card the port trains on).
-    ``training.deterministic_cuda_kernels`` is not refused: ``Models``
-    runs it (``device.use_deterministic_kernels``)."""
+    Lazy R1 (``r1_gamma``, ``r1_interval``), generator EMA (``ema_decay``),
+    the D and G phases as two calls a step (``split_phases``), the generator
+    loss's two accumulated sub-backwards (``g_loss_split``) and
+    ``training.deterministic_cuda_kernels`` are not refused:
+    ``core/train_step.py``, ``core/trainer.py`` and ``Models`` run them."""
     tpu = config["tpu"]
     refused = [(key, off) for key, off in _NOT_PORTED.items() if tpu[key]]
     if tpu["remat"] != "none":

@@ -118,18 +118,25 @@ def _load(layers, variables, what: str) -> None:
 
 
 def from_jax_params(
-    target: Models | TrainState, params_g, params_m, params_d=None, params_s=None
+    target: Models | TrainState, params_g, params_m, params_d=None, params_s=None,
+    ema_params_g=None,
 ) -> Models | TrainState:
-    """Copy the JAX generator, mapping and (when given) discriminator and
-    style-extractor variables into ``target`` (in place; returned for
-    chaining): a ``Models`` for serving, or a ``TrainState``, the holder
-    of the discriminator and the extractor."""
+    """Copy the JAX generator, mapping and (when given) discriminator,
+    style-extractor and EMA generator (``ema_params_g``) variables into
+    ``target`` (in place; returned for chaining): a ``Models`` for
+    serving, or a ``TrainState``, the holder of the discriminator, the
+    extractor and, with EMA on, the EMA generator."""
     _load(_generator_layers(target.generator), params_g, "generator")
     _load(_mapping_layers(target.mapping), params_m, "mapping")
     if params_d is not None:
         _load(_discriminator_layers(target.discriminator), params_d, "discriminator")
     if params_s is not None:
         _load(_extractor_layers(target.extractor), params_s, "extractor")
+    if ema_params_g is not None:
+        if getattr(target, "ema_generator", None) is None:
+            msg = "ema_params_g given, but the target holds no EMA generator (tpu.ema_decay = 0)"
+            raise ValueError(msg)
+        _load(_generator_layers(target.ema_generator), ema_params_g, "EMA generator")
     return target
 
 

@@ -15,6 +15,11 @@ The JAX package's ``core/evaluation.py``, on the port's models:
   the shoemark train images, tagged with the extractor's name in the
   text log and in ``metrics.jsonl``.
 
+Both sample from ``eval_generator(state)``: the EMA generator when
+``tpu.ema_decay > 0``, else the trained one; the mapping network and the
+style extractor are the trained ones (the JAX package's
+``eval_params_g``).
+
 ``save_grid`` keeps the reference's layout (rows x cols, column-major
 input, each image min-max scaled on its own) but composes the grid with
 numpy and PIL, without matplotlib: its figure styling (axes, dpi, bbox)
@@ -34,7 +39,7 @@ import torch
 from PIL import Image
 
 from one_to_many_gan_torch.config import Config
-from one_to_many_gan_torch.core.state import Models, TrainState
+from one_to_many_gan_torch.core.state import Models, TrainState, eval_generator
 from one_to_many_gan_torch.models import apply_domain, draw_style_rngs
 
 
@@ -178,7 +183,7 @@ def image_checkpoint(
     """Save ``images/translation_{step}.png`` (9x8) and
     ``images/decoding_{step}.png`` (5x8); the style draws come from
     ``generator``."""
-    gen, extractor = state.generator, state.extractor
+    gen, extractor = eval_generator(state), state.extractor
     device, n_blocks = models.device, models.n_style_blocks
     out_dir = run_dir(config) / "images"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -243,7 +248,7 @@ def val_checkpoint(
     for _ in range(math.ceil(n_eval / batch)):
         images = _nchw(next(shoeprint_val_iter), models.device)
         w = _styles(models, state, generator, images.shape[0])
-        out = _nhwc(state.generator(images, w))
+        out = _nhwc(eval_generator(state)(images, w))
         out_u8 = np.clip((out + 1.0) * 127.5, 0, 255).astype(np.uint8)
         for img in out_u8:
             Image.fromarray(img.squeeze(-1) if img.shape[-1] == 1 else img).save(

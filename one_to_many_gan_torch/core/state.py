@@ -3,12 +3,16 @@
 ``Models`` holds the generator and mapping network, which serving and
 training share, without gradients. ``TrainState`` adds what only
 training needs: the discriminator, the style extractor, the four Adams
-(discriminator, generator, mapping, extractor), the ADA state and the
-replay buffer, and it turns gradients on for the generator and mapping.
+(discriminator, generator, mapping, extractor), the ADA state, the
+replay buffer and, with ``tpu.ema_decay > 0``, the generator's EMA
+(``ema_generator``, which evaluation, the artifact and serving read:
+``eval_generator``), and it turns gradients on for the generator and
+mapping.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import torch
@@ -105,7 +109,10 @@ class TrainState:
     """What one training step reads and writes. The modules and the
     optimizers are updated in place (as torch does); ``ada`` and
     ``buffer`` are replaced by the discriminator phase, ``step`` counts
-    the generator phases."""
+    the generator phases. ``ema_generator`` is the generator's
+    exponential moving average (``tpu.ema_decay > 0``; None when EMA is
+    off): a third ``Generator`` without gradients, updated after each
+    generator phase's Adams."""
 
     step: int
     generator: Generator
@@ -118,6 +125,7 @@ class TrainState:
     opt_s: torch.optim.Optimizer
     ada: AdaState
     buffer: BufferState
+    ema_generator: Generator | None = None
 
 
 def init_train_state(config: Config, models: Models, *, seed: int = 0) -> TrainState:
@@ -125,14 +133,19 @@ def init_train_state(config: Config, models: Models, *, seed: int = 0) -> TrainS
     style extractor, with N(0, 1) weights from ``torch.manual_seed(seed)``
     (forked RNG, as ``Models``; in eval mode, on the models' device and in
     their compute dtype), the four Adams, ADA at p = 0 and an empty replay
-    buffer. Gradients are turned on for ``models``' generator and mapping
-    network, which the state trains."""
+    buffer; with ``tpu.ema_decay > 0`` the EMA generator starts as a copy
+    of the generator (the JAX package's ``init_train_state``). Gradients
+    are turned on for ``models``' generator and mapping network, which
+    the state trains."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         discriminator = Discriminator(models.channels, dtype=models.dtype)
         extractor = StyleExtractor(models.channels, models.w_dim, dtype=models.dtype)
     for module in (discriminator, extractor):
         module.eval().to(models.device)
+    ema = None
+    if config["tpu"]["ema_decay"] > 0:
+        ema = copy.deepcopy(models.generator).requires_grad_(False)
     for module in (models.generator, models.mapping):
         module.requires_grad_(True)
     opts = make_optimizers(config, {
@@ -153,4 +166,12 @@ def init_train_state(config: Config, models: Models, *, seed: int = 0) -> TrainS
         buffer=init_buffer(
             config["training"]["image_buffer_size"], (h, w, models.channels), models.device
         ),
+        ema_generator=ema,
     )
+
+
+def eval_generator(state: TrainState) -> Generator:
+    """The generator that evaluation, the artifact and serving sample from:
+    the EMA weights when EMA is on (``tpu.ema_decay > 0``), else the
+    trained generator (the JAX package's ``eval_params_g``)."""
+    return state.ema_generator if state.ema_generator is not None else state.generator

@@ -16,7 +16,11 @@ discriminator, augmenting at ``p_used`` (not at the controller's new p).
 3. ADA augment of the buffered fakes and of the real marks, at the
    probability entering the phase;
 4. one discriminator forward and backward on the packed 2B batch
-   (``batch_pack``: row ``k*n + j`` is input ``j``'s sample ``k``);
+   (``batch_pack``: row ``k*n + j`` is input ``j``'s sample ``k``); with
+   ``tpu.r1_gamma > 0``, on the steps where ``step % tpu.r1_interval == 0``
+   (lazy R1), ``r1_gamma / 2 * r1_penalty`` on the augmented reals in
+   float32 (a double backward through D) is added to the loss and its
+   gradients to D's; the other steps are the ``r1_gamma = 0`` update;
 5. Adam on the discriminator;
 6. the ADA controller, fed the mean sign of the real scores.
 
@@ -41,9 +45,15 @@ does.
    structure; other steps never build it and report ``path_loss`` 0);
 5. one backward over the generator, mapping and extractor parameters
    only (the discriminator's are frozen for the phase: no weight
-   gradient of it is computed and its ``.grad`` is left as it was);
+   gradient of it is computed and its ``.grad`` is left as it was); with
+   ``tpu.g_loss_split``, two accumulated sub-backwards instead, each
+   encoding anew: {kl, rec, idt, gan, style}, then (on path steps) the
+   path term, its gradient scaled by the interval (the JAX package's
+   memory lever: each holds a fraction of the joint graph);
 6. three Adams (generator and extractor at ``learning_rate``, mapping at
-   ``mapping_network_learning_rate``), then ``step += 1``.
+   ``mapping_network_learning_rate``); with ``tpu.ema_decay > 0`` the EMA
+   generator moves, ``e = e * decay + p * (1 - decay)`` in float32; then
+   ``step += 1``.
 
 Steps 1-5 are ``make_g_loss``'s ``g_loss_and_grad``, which a caller that
 compares the gradients across devices calls as ``g_phase`` does.
@@ -52,9 +62,9 @@ Every draw is injected (``DPhaseDraws``, ``GPhaseDraws``: the JAX phases'
 keys 0-3 and 4-9 of one ``split(rng, 10)``; ``draw_step`` makes them from
 a ``torch.Generator``). Batches are NHWC in [-1, 1], as in the JAX
 package. The metrics keep the JAX names and stay on the device (0-d
-tensors): reading them is the caller's sync. R1, EMA, the supersampled
-warp and ``g_loss_split`` are not ported yet (ROADMAP.md):
-``check_training_options`` refuses a config that turns them on.
+tensors): reading them is the caller's sync. The supersampled warp is
+not ported yet (ROADMAP.md): ``check_training_options`` refuses a config
+that turns it on.
 """
 
 from __future__ import annotations
@@ -81,6 +91,7 @@ from one_to_many_gan_torch.losses import (
     lsgan_d_loss,
     lsgan_g_loss,
     path_loss,
+    r1_penalty,
     style_cycle_loss,
 )
 from one_to_many_gan_torch.models import StyleRngs, apply_domain, draw_style_rngs
@@ -196,12 +207,31 @@ def make_d_inputs(config: Config, models: Models):
     return d_inputs
 
 
+def r1_loss_and_grad(discriminator, aug_real: torch.Tensor, gamma: float) -> torch.Tensor:
+    """``gamma / 2 * r1_penalty`` on the augmented reals (NHWC) in float32
+    (float64 for a float64 discriminator: a reference): its gradients are
+    added to the discriminator's ``.grad`` (the head's bias has none: D's
+    gradient in its input does not depend on it); -> the term, detached."""
+    acc = torch.promote_types(aug_real.dtype, torch.float32)
+    reals = aug_real.to(acc).permute(0, 3, 1, 2).contiguous()
+    params = list(discriminator.parameters())
+    loss = (gamma / 2.0) * r1_penalty(discriminator, reals)
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    for p, g in zip(params, grads, strict=True):
+        if g is not None:
+            p.grad.add_(g)
+    return loss.detach()
+
+
 def make_d_phase(config: Config, models: Models):
     """-> ``d_phase(state, d_shoeprints, d_shoemarks, draws)``: one
     discriminator update on ``models.device``; ``state`` is updated in
-    place and returned with the metrics ``disc_loss``, ``disc_real_acc``,
-    ``disc_fake_acc`` and ``ada_p`` (the probability used)."""
+    place and returned with the metrics ``disc_loss`` (with the R1 term on
+    R1 steps), ``disc_real_acc``, ``disc_fake_acc`` and ``ada_p`` (the
+    probability used)."""
     d_inputs = make_d_inputs(config, models)
+    r1_gamma = config["tpu"]["r1_gamma"]
+    r1_interval = config["tpu"]["r1_interval"]
     ada_cfg = config["ada"]
     ada_update = make_ada_update(
         ada_cfg["ada_overfitting_measurement_n_images"],
@@ -217,6 +247,8 @@ def make_d_phase(config: Config, models: Models):
         p_used = state.ada.p
         aug_fake, aug_real, state.buffer = d_inputs(state, d_shoeprints, d_shoemarks, draws)
         loss, real_scores, fake_scores = d_loss_and_grad(state.discriminator, aug_fake, aug_real)
+        if r1_gamma > 0 and state.step % r1_interval == 0:
+            loss = loss + r1_loss_and_grad(state.discriminator, aug_real, r1_gamma)
         state.opt_d.step()
         sign_real = discriminator_confidence(real_scores)
         sign_fake = -discriminator_confidence(fake_scores)
@@ -290,13 +322,77 @@ def make_g_loss(config: Config, models: Models):
     """-> ``g_loss_and_grad(state, batches, draws, p_used, path_step)``:
     steps 1-5 of the G phase (with the path term when ``path_step``) ->
     its metrics; the gradients go to the generator's, mapping network's
-    and extractor's ``.grad`` (set anew), and to nothing else."""
+    and extractor's ``.grad`` (set anew), and to nothing else. With
+    ``tpu.g_loss_split`` the gradients are the sum of two sub-backwards
+    (the main terms, then the path term on a fresh encode), equal to the
+    joint backward's up to float reassociation."""
     check_training_options(config)
     opt = config["optimisation"]
     scale = float(config["tpu"]["path_interval"])
+    split = config["tpu"]["g_loss_split"]
     antialias = config["tpu"]["ada_antialias"]
     n_blocks = models.n_style_blocks
     device = models.device
+
+    def encode(gen, prints, marks, draws):
+        """-> (print latents, mark latents, KL) of the packed 2B encode."""
+        latents = gen.encode(batch_pack([prints, marks]))
+        kl = kl_loss(latents)
+        if draws.latent_noise is not None:
+            latents = latents + draws.latent_noise.permute(0, 3, 1, 2)
+        print_latent, mark_latent = batch_unpack(latents, 2)
+        return print_latent, mark_latent, kl
+
+    def main_terms(state, prints, marks, draws, p_used, print_latent, mark_latent, kl):
+        """-> (kl + rec + idt + gan + style weighted, their metrics)."""
+        gen, mapping, extractor = state.generator, state.mapping, state.extractor
+        b = prints.shape[0]
+        # styles are float32 (float64 in a float64 copy of the models)
+        mark_w = extractor(marks)
+        w0 = torch.zeros((n_blocks, b, mark_w.shape[-1]), dtype=mark_w.dtype, device=device)
+        w_t = mapping.style_vector(draws.style, n_blocks, mix_styles=True)
+        out3 = gen.decode(
+            batch_pack([print_latent, mark_latent, print_latent]),
+            batch_pack([w0, mark_w[None].expand(n_blocks, -1, -1), w_t], dim=1),
+        )
+        recon, idt, generated = batch_unpack(out3, 3)
+        acc = torch.promote_types(out3.dtype, torch.float32)
+        rec_loss = l1_loss(recon.to(acc), prints)
+        idt_loss = l1_loss(idt.to(acc), marks)
+
+        # GAN: the translations augmented at p_used, scored by the
+        # discriminator as the D phase left it.
+        aug = augment(generated.permute(0, 2, 3, 1), p_used, draws.aug, antialias=antialias)
+        gan = lsgan_g_loss(state.discriminator(aug.permute(0, 3, 1, 2)).to(acc))
+        # Style cycle: the style extracted back from the translations.
+        style = style_cycle_loss(w_t[-1], extractor(generated))
+        total = (
+            gan
+            + opt["identity_loss_lambda"] * idt_loss
+            + opt["reconstruction_loss_lambda"] * rec_loss
+            + opt["kl_loss_lambda"] * kl
+            + opt["style_cycle_loss_lambda"] * style
+        )
+        return total, {
+            "gan_loss": gan.detach(),
+            "reconstruction_loss": rec_loss.detach(),
+            "identity_loss": idt_loss.detach(),
+            "kl_loss": kl.detach(),
+            "style_loss": style.detach(),
+        }
+
+    def path_term(state, draws, print_latent):
+        """The raw θ-path term: both finite-difference legs in one extract
+        at 2B."""
+        theta, h = draws.theta, draws.fin_diff_h
+        w_path = state.mapping.style_vector(draws.path_style, n_blocks, mix_styles=True)
+        w1 = apply_domain(w_path, torch.clamp(theta + h / 2.0, 0.0, 1.0))
+        w2 = apply_domain(w_path, torch.clamp(theta - h / 2.0, 0.0, 1.0))
+        feats = state.generator.extract(
+            batch_pack([print_latent, print_latent]), batch_pack([w1, w2], dim=1)
+        )
+        legs = [batch_unpack(f, 2) for f in feats]
+        return path_loss([f1 for f1, _ in legs], [f2 for _, f2 in legs], h)
 
     def g_loss_and_grad(
         state: TrainState, batches: Batches, draws: GPhaseDraws, p_used: torch.Tensor,
@@ -305,68 +401,41 @@ def make_g_loss(config: Config, models: Models):
         gen, mapping, extractor = state.generator, state.mapping, state.extractor
         prints = _nchw(batches.g_shoeprints, device)
         marks = _nchw(batches.g_shoemarks, device)
-        b = prints.shape[0]
         params = [p for m in (gen, mapping, extractor) for p in m.parameters()]
         with _frozen(state.discriminator):
-            latents = gen.encode(batch_pack([prints, marks]))
-            kl = kl_loss(latents)
-            if draws.latent_noise is not None:
-                latents = latents + draws.latent_noise.permute(0, 3, 1, 2)
-            print_latent, mark_latent = batch_unpack(latents, 2)
-
-            # styles are float32 (float64 in a float64 copy of the models)
-            mark_w = extractor(marks)
-            w0 = torch.zeros((n_blocks, b, mark_w.shape[-1]), dtype=mark_w.dtype, device=device)
-            w_t = mapping.style_vector(draws.style, n_blocks, mix_styles=True)
-            out3 = gen.decode(
-                batch_pack([print_latent, mark_latent, print_latent]),
-                batch_pack([w0, mark_w[None].expand(n_blocks, -1, -1), w_t], dim=1),
-            )
-            recon, idt, generated = batch_unpack(out3, 3)
-            acc = torch.promote_types(out3.dtype, torch.float32)
-            rec_loss = l1_loss(recon.to(acc), prints)
-            idt_loss = l1_loss(idt.to(acc), marks)
-
-            # GAN: the translations augmented at p_used, scored by the
-            # discriminator as the D phase left it.
-            aug = augment(generated.permute(0, 2, 3, 1), p_used, draws.aug, antialias=antialias)
-            gan = lsgan_g_loss(state.discriminator(aug.permute(0, 3, 1, 2)).to(acc))
-            # Style cycle: the style extracted back from the translations.
-            style = style_cycle_loss(w_t[-1], extractor(generated))
-            total = (
-                gan
-                + opt["identity_loss_lambda"] * idt_loss
-                + opt["reconstruction_loss_lambda"] * rec_loss
-                + opt["kl_loss_lambda"] * kl
-                + opt["style_cycle_loss_lambda"] * style
-            )
-            path = torch.zeros((), dtype=acc, device=device)
-            if path_step:
-                # Both finite-difference legs in one extract at 2B.
-                theta, h = draws.theta, draws.fin_diff_h
-                w_path = mapping.style_vector(draws.path_style, n_blocks, mix_styles=True)
-                w1 = apply_domain(w_path, torch.clamp(theta + h / 2.0, 0.0, 1.0))
-                w2 = apply_domain(w_path, torch.clamp(theta - h / 2.0, 0.0, 1.0))
-                feats = gen.extract(
-                    batch_pack([print_latent, print_latent]), batch_pack([w1, w2], dim=1)
-                )
-                legs = [batch_unpack(f, 2) for f in feats]
-                path = path_loss([f1 for f1, _ in legs], [f2 for _, f2 in legs], h)
-                total = total + opt["path_loss_lambda"] * path * scale
-            grads = torch.autograd.grad(total, params)
+            latents = encode(gen, prints, marks, draws)
+            total, metrics = main_terms(state, prints, marks, draws, p_used, *latents)
+            path = torch.zeros((), dtype=total.dtype, device=device)
+            if split:
+                grads = list(torch.autograd.grad(total, params))
+                if path_step:
+                    print_latent, _, _ = encode(gen, prints, marks, draws)
+                    path = path_term(state, draws, print_latent)
+                    weighted = opt["path_loss_lambda"] * path * scale
+                    extra = torch.autograd.grad(weighted, params, allow_unused=True)
+                    grads = [g if e is None else g + e
+                             for g, e in zip(grads, extra, strict=True)]
+                    total = total + weighted
+            else:
+                if path_step:
+                    path = path_term(state, draws, latents[0])
+                    total = total + opt["path_loss_lambda"] * path * scale
+                grads = torch.autograd.grad(total, params)
         for p, g in zip(params, grads, strict=True):
             p.grad = g
-        return {
-            "total_gen_loss": total.detach(),
-            "gan_loss": gan.detach(),
-            "reconstruction_loss": rec_loss.detach(),
-            "identity_loss": idt_loss.detach(),
-            "kl_loss": kl.detach(),
-            "style_loss": style.detach(),
-            "path_loss": path.detach(),
-        }
+        return {"total_gen_loss": total.detach(), **metrics, "path_loss": path.detach()}
 
     return g_loss_and_grad
+
+
+@torch.no_grad()
+def ema_update(ema: nn.Module, module: nn.Module, decay: float) -> None:
+    """``e = e * decay + p * (1 - decay)`` over the parameters, in place:
+    the JAX package's formula with its roundings (each product and the sum
+    rounded to the parameters' float32), as three ``_foreach`` ops."""
+    e = list(ema.parameters())
+    torch._foreach_mul_(e, decay)
+    torch._foreach_add_(e, torch._foreach_mul(list(module.parameters()), 1.0 - decay))
 
 
 def make_g_phase(config: Config, models: Models):
@@ -378,6 +447,7 @@ def make_g_phase(config: Config, models: Models):
     raw path term on path steps, 0 on the others)."""
     g_loss_and_grad = make_g_loss(config, models)
     interval = config["tpu"]["path_interval"]
+    decay = config["tpu"]["ema_decay"]
 
     def g_phase(
         state: TrainState, batches: Batches, draws: GPhaseDraws, p_used: torch.Tensor
@@ -385,6 +455,8 @@ def make_g_phase(config: Config, models: Models):
         metrics = g_loss_and_grad(state, batches, draws, p_used, state.step % interval == 0)
         for opt in (state.opt_g, state.opt_m, state.opt_s):
             opt.step()
+        if state.ema_generator is not None:
+            ema_update(state.ema_generator, state.generator, decay)
         state.step += 1
         return state, metrics
 

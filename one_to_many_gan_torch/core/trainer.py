@@ -21,7 +21,13 @@ the end writes the image grids, the validation FID/KID and a checkpoint.
   ``training.deterministic_cuda_kernels``).
 - **Groups**: ``tpu.steps_per_call`` steps form a group (clamped to a
   divisor of both intervals, with a warning); the port runs a group's
-  steps back to back.
+  steps back to back. ``tpu.split_phases`` forces groups of 1, as the JAX
+  package does (``core/trainer.py``); the port's step is already the D
+  phase and the G phase as two calls, each freeing its graph before the
+  next, so the split changes nothing else and gives the same bits.
+- **EMA** (``tpu.ema_decay > 0``): the EMA generator is saved in the
+  checkpoint (``migrate.py``), restored on resume, and is what the grids,
+  the validation FID/KID and the artifact sample from.
 - **Data**: a producer thread prepares ``tpu.prefetch`` groups ahead:
   the uint8 batches (flipped on the host) in pinned memory, copied to
   the device on a stream of their own, and normalised there to [-1, 1]
@@ -169,7 +175,7 @@ class Trainer:
         self.models = Models(config, device=device, seed=seed)
         self.device = self.models.device
 
-        k_req = max(1, config["tpu"]["steps_per_call"])
+        k_req = 1 if config["tpu"]["split_phases"] else max(1, config["tpu"]["steps_per_call"])
         k = math.gcd(math.gcd(k_req, config["evaluation"]["log_interval"]),
                      config["evaluation"]["checkpoint_interval"])
         if k != k_req:

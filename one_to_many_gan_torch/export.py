@@ -6,7 +6,9 @@ four Adams, ADA and the replay buffer; serving needs two networks. The
 artifact holds their leaves flattened as ``g/params/...`` and
 ``m/params/...`` in the JAX trees' layout (HWIO convs, ``[in, out]``
 linears, through ``convert.to_jax_params``), plus ``__step__`` and
-``__ema__`` (False: the port has no EMA yet). The JAX package's
+``__ema__``: with EMA on (``tpu.ema_decay > 0``; the checkpoint then
+carries the EMA generator) the generator leaves are the EMA weights and
+``__ema__`` is True, as the JAX package's export writes them. The JAX package's
 ``export.load_inference_artifact`` reads it, and so does the one here;
 the port's server and CLI serve it with ``--artifact``.
 
@@ -38,8 +40,9 @@ def _unflatten(flat: dict, prefix: str):
 
 def export_inference_artifact(config, out_path: Path | str, *, device=None) -> Path:
     """Write the artifact of the configured run's latest checkpoint to
-    ``out_path`` (the weights pass through ``Models`` on ``device``:
-    None means CUDA). Raises ``FileNotFoundError`` without a checkpoint."""
+    ``out_path`` (its EMA generator when it has one; the weights pass
+    through ``Models`` on ``device``: None means CUDA). Raises
+    ``FileNotFoundError`` without a checkpoint."""
     from one_to_many_gan_torch.convert import _flatten, to_jax_params
     from one_to_many_gan_torch.core.state import Models
     from one_to_many_gan_torch.migrate import latest_checkpoint, load_inference_weights
@@ -49,13 +52,13 @@ def export_inference_artifact(config, out_path: Path | str, *, device=None) -> P
         msg = f"no checkpoint of run {config['training']['training_run']!r} to export"
         raise FileNotFoundError(msg)
     models = Models(config, device=device)
-    load_inference_weights(ckpt, models)
+    ema = load_inference_weights(ckpt, models)
     params_g, params_m = to_jax_params(models)
     flat: dict = {}
     _flatten(params_g, "g", flat)
     _flatten(params_m, "m", flat)
     flat["__step__"] = np.int64(step)
-    flat["__ema__"] = np.bool_(False)
+    flat["__ema__"] = np.bool_(ema)
     out_path = Path(out_path)
     out_path.parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(out_path, **flat)

@@ -6,8 +6,8 @@
 
 Generates with an inference artifact (``--artifact``: ``export.py``'s,
 or the JAX package's) or else with the configured run's latest
-checkpoint (``<run>/models/<step>.tar``); without either, with fresh
-weights from ``--seed`` and a warning.
+checkpoint (``<run>/models/<step>.tar``; its EMA generator when it has
+one); without either, with fresh weights from ``--seed`` and a warning.
 Encodes the source once and decodes all N styles in one batched call on
 the device (``cuda`` unless ``--device cpu``; raises without a GPU). The
 style draws come from ``torch.Generator(device).manual_seed(seed)``.
@@ -54,8 +54,8 @@ def generate(
         if ckpt is None:
             print("warning: no checkpoint found; generating with fresh weights")
         else:
-            load_inference_weights(ckpt, models)
-            print(f"loaded checkpoint at step {step}")
+            ema = load_inference_weights(ckpt, models)
+            print(f"loaded checkpoint at step {step}" + (" (EMA generator)" if ema else ""))
 
     img_u8 = _load_image(
         Path(source),

@@ -73,3 +73,18 @@ def path_loss(
         jac = (f1.to(h.dtype) - f2.to(h.dtype)) / h
         total = total + jac.square().mean()
     return total / len(features1)
+
+
+def r1_penalty(discriminator, real_images: torch.Tensor) -> torch.Tensor:
+    """R1 gradient penalty E[|grad_x D(x)|^2] on real images [B,C,H,W]
+    (the JAX package's ``losses.r1_penalty``): the sum over the batch of
+    D's per-sample mean patch logit, differentiated with respect to the
+    images with ``create_graph=True`` (so the penalty is differentiable in
+    D's parameters: a double backward through D), squared and summed per
+    sample in float32 (float64 for float64 images), averaged over the
+    batch."""
+    x = real_images.detach().requires_grad_(True)
+    scalar = discriminator(x).mean(dim=(1, 2, 3)).sum()
+    (grad,) = torch.autograd.grad(scalar, x, create_graph=True)
+    acc = torch.promote_types(grad.dtype, torch.float32)
+    return grad.to(acc).square().sum(dim=(1, 2, 3)).mean()

@@ -38,11 +38,19 @@ The reference's fixed blur buffers (``*.smooth.kernel``) are not
 written, and are skipped when read.
 
 For an exact resume the file also carries what the reference drops,
-under keys the JAX importer ignores: ``step``, and ``ada_window``, the
-ADA controller's open window (``count``, ``accum``). A reference file
-has neither: its step comes from the file name and the window starts
-fresh. Everything is tensors, numbers, lists and dicts, so
-``torch.load(..., weights_only=True)`` reads it.
+under keys the JAX importer ignores: ``step``; ``ada_window``, the ADA
+controller's open window (``count``, ``accum``); and, with EMA on
+(``tpu.ema_decay > 0``), ``ema_generator_state_dict``, the EMA
+generator's weights in the generator's keys and order. A reference file
+has none of them: its step comes from the file name, the window starts
+fresh, and EMA starts as a copy of the generator (the JAX importer's
+rule, its ``migrate.py``). Everything is tensors, numbers, lists and
+dicts, so ``torch.load(..., weights_only=True)`` reads it.
+
+The JAX importer reads the port's files, but it cannot read the EMA key:
+it starts its EMA as a copy of the imported generator. So a port file
+with EMA on carries into the JAX package exactly except for the EMA
+weights, which restart there from the generator.
 
 ``CheckpointManager`` keeps a run's files, ``<run>/models/<step>.tar``
 (the reference's name): the latest by step, at most
@@ -72,6 +80,10 @@ NETWORKS = (
     ("mapping_network", "mapping", "opt_m"),
     ("style_extractor", "extractor", "opt_s"),
 )
+
+# The EMA generator's state_dict: the generator's keys, under a key of the
+# port's own (the reference has no EMA).
+EMA_KEY = "ema_generator_state_dict"
 
 # The trunks' conv positions in the reference's Sequential.
 _TRUNK_IDX = (0, 3, 7, 11)
@@ -172,6 +184,8 @@ def to_reference_checkpoint(state: TrainState) -> dict:
     ckpt["image_buffer_size"] = state.buffer.images.shape[0]
     ckpt["step"] = int(state.step)
     ckpt["ada_window"] = {"count": _cpu(state.ada.count), "accum": _cpu(state.ada.accum)}
+    if state.ema_generator is not None:
+        ckpt[EMA_KEY] = {k: _cpu(p) for k, p in reference_keys("generator", state.ema_generator)}
     return ckpt
 
 
@@ -185,15 +199,20 @@ def from_reference_checkpoint(
 ) -> TrainState:
     """Load a reference checkpoint dict into ``state`` (in place; returned):
     the four networks, their Adams, ADA p (and the open window when the
-    file has one; else a fresh window), the replay buffer and the step
-    (``ckpt["step"]``, else ``step``). Every key and shape is checked."""
+    file has one; else a fresh window), the replay buffer, the step
+    (``ckpt["step"]``, else ``step``) and, when ``state`` keeps an EMA
+    generator, the file's EMA weights, or a copy of the generator's when
+    the file has none. Every key and shape is checked."""
     if "step" not in ckpt and step is None:
         msg = "the checkpoint carries no step; pass step= (the reference's <step>.tar name)"
         raise MigrationError(msg)
     for name, attr, opt_attr in NETWORKS:
-        pairs = _load_params(ckpt, name, getattr(state, attr))
+        pairs = _load_params(ckpt[f"{name}_state_dict"], name, getattr(state, attr))
         _load_optimizer(getattr(state, opt_attr), ckpt[f"{name}_optim_state_dict"],
                         ckpt[f"{name}_state_dict"], pairs, name)
+    if state.ema_generator is not None:
+        sd = ckpt.get(EMA_KEY, ckpt["generator_state_dict"])
+        _load_params(sd, "generator", state.ema_generator)
     device = state.ada.p.device
     window = ckpt.get("ada_window")
     state.ada = AdaState(
@@ -217,11 +236,10 @@ def from_reference_checkpoint(
 
 
 @torch.no_grad()
-def _load_params(ckpt: dict, name: str, module: nn.Module) -> list[tuple[str, nn.Parameter]]:
-    """Copy network ``name``'s state_dict from ``ckpt`` into ``module``;
+def _load_params(sd: dict, name: str, module: nn.Module) -> list[tuple[str, nn.Parameter]]:
+    """Copy the state_dict ``sd`` of network ``name`` into ``module``;
     -> its (key, parameter) pairs."""
     pairs = reference_keys(name, module)
-    sd = ckpt[f"{name}_state_dict"]
     keys, want = set(_param_keys(sd)), {k for k, _ in pairs}
     if keys != want:
         missing, extra = sorted(want - keys), sorted(keys - want)
@@ -237,11 +255,14 @@ def _load_params(ckpt: dict, name: str, module: nn.Module) -> list[tuple[str, nn
     return pairs
 
 
-def load_inference_weights(ckpt: dict, models) -> None:
+def load_inference_weights(ckpt: dict, models) -> bool:
     """Copy the generator and the mapping network of a checkpoint dict
-    into ``models`` (a ``Models`` or a ``TrainState``), for serving."""
-    _load_params(ckpt, "generator", models.generator)
-    _load_params(ckpt, "mapping_network", models.mapping)
+    into ``models`` (a ``Models`` or a ``TrainState``), for serving: the
+    EMA generator's weights when the file has them. -> whether it had."""
+    ema = EMA_KEY in ckpt
+    _load_params(ckpt[EMA_KEY if ema else "generator_state_dict"], "generator", models.generator)
+    _load_params(ckpt["mapping_network_state_dict"], "mapping_network", models.mapping)
+    return ema
 
 
 def _load_optimizer(opt: torch.optim.Optimizer, opt_sd: dict, sd: dict, pairs, name: str) -> None:

@@ -185,7 +185,13 @@ class _InstanceNorm(torch.autograd.Function):
     """Forward: the kernel (CUDA) or the plain version (CPU). Backward:
     the closed-form gradient from the saved input (and output, for
     ReLU's mask), statistics recomputed in float32 (float64 for a float64
-    input, which only the CPU takes: a reference for the card)."""
+    input, which only the CPU takes: a reference for the card).
+
+    The backward is plain differentiable torch ops of the saved input, so
+    it differentiates again (lazy R1 takes its gradient): a second-order
+    pass differentiates the closed form, while the forward stays the
+    kernel. With ReLU the ``y > 0`` mask is a constant there, which is
+    right: ReLU's second derivative is 0."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, relu: bool, eps: float) -> torch.Tensor:

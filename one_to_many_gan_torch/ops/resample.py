@@ -20,6 +20,14 @@ calls with the JAX package's taps:
 
 ``bilinear_resize`` (the odd-size fallback) applies dense per-axis
 interpolation matrices.
+
+The FIRs' depthwise convs (``_fir``) run inside a pair of
+``autograd.Function``s, each the other's backward (the conv and its
+transpose by the same constant taps), so that a derivative of any order
+is one depthwise conv. R1 differentiates the discriminator's
+downsampling twice, and PyTorch's own double backward of a grouped conv
+runs one conv per channel: at 512x512 it made R1's step 18.8 s instead
+of about 0.1 s.
 """
 
 from __future__ import annotations
@@ -58,12 +66,47 @@ def _edge_pad(x: torch.Tensor, dim: int) -> torch.Tensor:
     return pad(x, (0, 0, 1, 1) if dim == 2 else (1, 1, 0, 0), "replicate")
 
 
+class _DepthwiseConv(torch.autograd.Function):
+    """``F.conv2d(x, k, stride, groups=C)`` by constant taps ``k``; its
+    backward is ``_DepthwiseConvT`` (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, k: torch.Tensor, stride: tuple[int, int]):
+        ctx.save_for_backward(k)
+        ctx.stride, ctx.size = stride, tuple(x.shape[-2:])
+        return F.conv2d(x, k, stride=stride, groups=x.shape[1])
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (k,) = ctx.saved_tensors
+        return _DepthwiseConvT.apply(g, k, ctx.stride, ctx.size), None, None
+
+
+class _DepthwiseConvT(torch.autograd.Function):
+    """The transpose of ``_DepthwiseConv`` onto an input of ``size``; its
+    backward is ``_DepthwiseConv``."""
+
+    @staticmethod
+    def forward(ctx, g: torch.Tensor, k: torch.Tensor, stride: tuple[int, int],
+                size: tuple[int, int]):
+        ctx.save_for_backward(k)
+        ctx.stride = stride
+        extra = [n - ((m - 1) * s + t)
+                 for n, m, s, t in zip(size, g.shape[-2:], stride, k.shape[-2:], strict=True)]
+        return F.conv_transpose2d(g, k, stride=stride, output_padding=extra, groups=g.shape[1])
+
+    @staticmethod
+    def backward(ctx, gg: torch.Tensor):
+        (k,) = ctx.saved_tensors
+        return _DepthwiseConv.apply(gg, k, ctx.stride), None, None, None
+
+
 def _fir(x: torch.Tensor, taps: tuple[float, ...], dim: int, stride: int = 1) -> torch.Tensor:
     """Depthwise 1D FIR along H (dim 2) or W (dim 3) of the edge-padded x."""
     c = x.shape[1]
     k = _taps(taps, dim, c, x.dtype, x.device)
     strides = (stride, 1) if dim == 2 else (1, stride)
-    return F.conv2d(_edge_pad(x, dim), k, stride=strides, groups=c)
+    return _DepthwiseConv.apply(_edge_pad(x, dim), k, strides)
 
 
 def _double_blur(x: torch.Tensor, dim: int) -> torch.Tensor:

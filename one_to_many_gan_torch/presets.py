@@ -1,10 +1,13 @@
-"""Programmatic config presets (dry runs, tests)."""
+"""Programmatic config presets (dry runs, tests), and one card's copy of
+a config written for several devices."""
 
 from __future__ import annotations
 
+import re
 from pathlib import Path
+from typing import Any
 
-from one_to_many_gan_torch.config import _TPU_DEFAULTS, Config, _validate
+from one_to_many_gan_torch.config import _TPU_DEFAULTS, Config, _validate, load_config
 
 
 def tiny_config(
@@ -84,3 +87,49 @@ def tiny_config(
     )
     _validate(config)
     return config
+
+
+def one_card_overrides(config: Config) -> dict[str, Any]:
+    """The keys of ``config`` that one card cannot run, with the values of
+    one data-parallel replica of it: ``data_parallel`` 1 (and
+    ``batch_size`` the replica's share of the global batch),
+    ``spatial_parallel`` 1, and ``native_loader`` false (the C++ loader is
+    not ported)."""
+    tpu = config["tpu"]
+    out: dict[str, Any] = {}
+    if tpu["data_parallel"] not in (1, -1):
+        out["data_parallel"] = 1
+        out["batch_size"] = config["training"]["batch_size"] // tpu["data_parallel"]
+    if tpu["spatial_parallel"] > 1:
+        out["spatial_parallel"] = 1
+    if tpu["native_loader"]:
+        out["native_loader"] = False
+    return out
+
+
+def _toml_value(value: Any) -> str:
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, (str, Path)):
+        return '"' + str(value).replace("\\", "\\\\").replace('"', '\\"') + '"'
+    return repr(value)
+
+
+def write_one_card_config(src: Path | str, dst: Path | str, **values: Any) -> dict[str, Any]:
+    """Write a copy of the TOML file ``src`` to ``dst`` that one card runs:
+    ``one_card_overrides`` of it, then ``values`` (other keys, such as the
+    data folders), each by replacing its ``key = ...`` line, which must be
+    the file's only line for that key. -> every key changed, with its new
+    value, in that order."""
+    text = Path(src).read_text()
+    changes = {**one_card_overrides(load_config(src)), **values}
+    for key, value in changes.items():
+        line = re.compile(rf"(?m)^{re.escape(key)} = .*$")
+        if len(line.findall(text)) != 1:
+            msg = f"{src}: expected one line for {key!r}, found {len(line.findall(text))}"
+            raise ValueError(msg)
+        new = f"{key} = {_toml_value(value)}"
+        text = line.sub(lambda _, new=new: new, text)
+    Path(dst).write_text(text)
+    load_config(dst)  # the copy must load and validate
+    return changes

@@ -31,8 +31,10 @@ CLI:
     python -m one_to_many_gan_torch.serve config.toml [--artifact model.npz] \
         [--host 0.0.0.0] [--port 8000] [--buckets 8,32,64] [--device cpu]
 
-Without ``--artifact`` it serves the configured run's latest checkpoint,
-or, when the run has none, fresh weights from seed 0 with a warning.
+Without ``--artifact`` it serves the configured run's latest checkpoint
+(its EMA generator when it has one: ``/healthz`` then says ``"ema":
+true``), or, when the run has none, fresh weights from seed 0 with a
+warning.
 ``--device`` defaults to ``cuda`` and raises without a GPU.
 """
 
@@ -147,9 +149,10 @@ class InferenceEngine:
 
     def reload(self) -> int:
         """Load the configured run's newest checkpoint when it is newer
-        than the served step (the generator and the mapping network,
-        swapped between requests); -> the served step. ``ValueError`` for
-        an engine that serves an artifact."""
+        than the served step (the generator, its EMA weights when the
+        checkpoint has them, and the mapping network, swapped between
+        requests); -> the served step. ``ValueError`` for an engine that
+        serves an artifact."""
         if self._mgr is None:
             msg = "reload unavailable: engine is backed by an immutable artifact"
             raise ValueError(msg)
@@ -158,7 +161,7 @@ class InferenceEngine:
             if latest is not None and latest != self.step:
                 ckpt = self._mgr.load(latest)
                 with self._lock:
-                    load_inference_weights(ckpt, self.models)
+                    self.ema = load_inference_weights(ckpt, self.models)
                     self.step = latest
             return self.step
 

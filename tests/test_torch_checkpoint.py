@@ -102,13 +102,20 @@ def saved(tmp_path_factory):
     save_checkpoint(mgr, STEPS, state)
     # The JAX importer builds its template state with ``init_train_state``:
     # op by op, that compiles one program per operation (~25 s on one core);
-    # as one unoptimised program, ~5 s.
+    # as one unoptimised program, ~5 s. The template is kept for the EMA test.
+    templates = []
+
+    def template(*args):
+        templates.append(_jit_init_train_state(*args))
+        return templates[-1]
+
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax_migrate, "init_train_state", _jit_init_train_state)
+        mp.setattr(jax_migrate, "init_train_state", template)
         jstate, step = jax_migrate.import_torch_checkpoint(jax_load_config(cfg_path),
                                                            mgr.path(STEPS))
     assert step == STEPS
-    return {"config": config, "state": state, "mgr": mgr, "jstate": jstate, "tmp": tmp}
+    return {"config": config, "state": state, "mgr": mgr, "jstate": jstate, "tmp": tmp,
+            "template": templates[0]}
 
 
 @pytest.mark.parametrize("net", list(NETWORKS))
@@ -160,6 +167,37 @@ def test_reference_file_without_the_extra_keys(saved):
     assert torch.equal(fresh.ada.p, state.ada.p)
     for p, q in zip(fresh.generator.parameters(), state.generator.parameters(), strict=True):
         assert torch.equal(p, q)
+
+
+def test_jax_import_of_a_port_file_with_ema_starts_ema_as_the_generator(saved, tmp_path):
+    """The JAX importer cannot read the port's EMA key: with EMA on, its
+    rule (its ``migrate.py``) starts EMA as a copy of the imported
+    generator, so the port's EMA weights do not carry into the JAX
+    package. The template is the fixture's, with EMA turned on."""
+    import copy
+
+    from one_to_many_gan_torch.migrate import EMA_KEY, to_reference_checkpoint
+
+    state = copy.copy(saved["state"])
+    state.ema_generator = copy.deepcopy(state.generator)
+    with torch.no_grad():
+        for p in state.ema_generator.parameters():
+            p.add_(0.5)
+    ckpt = to_reference_checkpoint(state)
+    assert EMA_KEY in ckpt
+    path = tmp_path / f"{STEPS}.tar"
+    torch.save(ckpt, path)
+    template = saved["template"]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_migrate, "init_train_state",
+                   lambda *_: template.replace(ema_params_g=template.params_g))
+        jstate, _ = jax_migrate.import_torch_checkpoint(
+            jax_load_config(saved["tmp"] / "config.toml"), path)
+    leaves = list(_port_leaves(state, "g", lambda p: p))
+    assert len(leaves) == len(jax.tree.leaves(jstate.ema_params_g))
+    for path_g, want in leaves:
+        np.testing.assert_array_equal(_get(jstate.ema_params_g, path_g), want, err_msg=path_g)
+        np.testing.assert_array_equal(_get(jstate.params_g, path_g), want, err_msg=path_g)
 
 
 def test_architecture_mismatch_is_refused(saved, tmp_path):

@@ -363,10 +363,26 @@ def test_train_state_holds_the_extractor_and_four_adams():
                                                   again.parameters(), strict=True))
 
 
-def test_training_refuses_g_loss_split():
-    cfg = port_tiny_config((SIZE, SIZE), BATCH, tpu={"g_loss_split": True})
-    with pytest.raises(NotImplementedError, match="tpu.g_loss_split.*ROADMAP.md"):
-        check_training_options(cfg)
+def test_training_runs_g_loss_split():
+    """``g_loss_split`` is accepted and its two sub-backwards run: on a path
+    step the path term is positive and every generator, mapping and
+    extractor parameter gets a finite gradient (``tests/test_torch_production.py``
+    holds them to the joint backward's)."""
+    from one_to_many_gan_torch.core import train_step as port_ts
+
+    cfg = port_tiny_config((SIZE, SIZE), BATCH, min_latent=32, n_resnet_blocks=1,
+                           tpu={"g_loss_split": True, "path_interval": 2})
+    check_training_options(cfg)
+    models = PortModels(cfg, device="cpu")
+    state = port_init_state(cfg, models)
+    gen = torch.Generator().manual_seed(0)
+    batches = port_ts.Batches(*(port_ts.synthetic_batch(gen, BATCH, (SIZE, SIZE), 1)
+                                for _ in range(4)))
+    draws = port_ts.draw_g_phase(gen, cfg, models)
+    metrics = port_ts.make_g_loss(cfg, models)(state, batches, draws, state.ada.p, True)
+    assert metrics["path_loss"].item() > 0
+    for m in (state.generator, state.mapping, state.extractor):
+        assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in m.parameters())
 
 
 # ------------------------------------------------------ the kink pattern

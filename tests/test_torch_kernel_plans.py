@@ -4,8 +4,9 @@ The instance-norm kernel takes its block layout from
 ``ops/cuda/instance_norm.py::plan``; the warp kernels run a fully unrolled
 loop of ``tap_count(width)`` taps per axis from ``first_tap(c, width)``.
 Both are checked here without a card: the plan at every instance-norm
-site of serving, of the D step and of the fused step (the site lists
-``chip_smoke.py`` times) against the card's limits, with every plane
+site of serving, of the D step, of the fused step and of the
+production config's 512x512 step (the site lists ``chip_smoke.py``
+times) against the card's limits, with every plane
 assigned exactly once; the taps against the dense tents of the plain
 version. No JAX.
 """
@@ -34,9 +35,12 @@ DTYPES = {torch.float32: 4, torch.bfloat16: 2}
 
 def _sites() -> list[tuple[int, int, int, int]]:
     """(B, C, H, W) of every instance-norm site of serving (B = 1 and 4),
-    of one D step and of one fused step."""
+    of one D step, of one fused step and of one step of the production
+    config (R1 and split path steps included)."""
     serve = [(b, c, h, w) for b in (1, 4) for c, h, w, _ in chip_smoke.ENCODE_SITES]
-    train = [site[:4] for site in chip_smoke.D_IN_SITES + chip_smoke.FUSED_IN_SITES]
+    train = [site[:4] for site in chip_smoke.D_IN_SITES + chip_smoke.FUSED_IN_SITES
+             + chip_smoke.P_STEP_IN_SITES + chip_smoke.P_R1_IN_SITES
+             + chip_smoke.P_SPLIT_IN_SITES]
     return sorted(set(serve + train))
 
 
@@ -58,6 +62,28 @@ def _block_ranges(p: in_module.Plan, planes: int, hw: int) -> np.ndarray:
 def test_the_site_lists_match_the_launch_counts():
     assert len(chip_smoke.D_IN_SITES) == chip_smoke.D_IN_PER_STEP == 12
     assert len(chip_smoke.FUSED_IN_SITES) == chip_smoke.G_IN_PER_STEP == 30
+    # the production config at 512x512: D phase 13 (encode 10 + D 3), G
+    # phase 19 (encode 10 + extractor 3 + D 3 + extractor 3); +3 on an R1
+    # step, +10 on a path step under g_loss_split (its second encode)
+    assert len(chip_smoke.P_D_IN_SITES) == 13 and len(chip_smoke.P_G_IN_SITES) == 19
+    assert len(chip_smoke.P_STEP_IN_SITES) == 32
+    assert len(chip_smoke.P_R1_IN_SITES) == 3 and len(chip_smoke.P_SPLIT_IN_SITES) == 10
+    assert (chip_smoke.P_D_WARPS, chip_smoke.P_G_WARPS, chip_smoke.P_G_WARP_BWDS) == (2, 1, 1)
+    assert chip_smoke.WARP_SHAPES[-1] == (chip_smoke.P_BATCH, chip_smoke.P_SIZE,
+                                          chip_smoke.P_SIZE)
+
+
+def test_the_production_planes_take_the_planned_layouts():
+    """At 512x512 the encoder's 512^2 planes (512 KiB in bfloat16, 1 MiB in
+    float32) take a cluster of 8 blocks of 64 or 128 KiB; D's 254^2
+    bfloat16 plane (129,032 B) stays resident, 2 KiB under the limit."""
+    for dtype, esize in DTYPES.items():
+        p = in_module.plan(16 * 64, 512 * 512, dtype)
+        assert (p.variant, p.cluster) == ("cluster", 8)
+        assert -(-512 * 512 // 8) * esize <= p.smem_bytes <= -(-512 * 512 // 8) * esize + 32
+    d = in_module.plan(16 * 128, 254 * 254, torch.bfloat16)
+    assert d.variant == "resident" and 254 * 254 * 2 == 129032
+    assert in_module.RESIDENT_BYTES - 129032 <= 2048 < in_module.RESIDENT_BYTES
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))

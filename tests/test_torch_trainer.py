@@ -11,6 +11,7 @@ equal the uninterrupted run's bit for bit; SIGTERM, the halt on a
 non-finite metric, the refused ``[tpu]`` keys and the CLI's exit code.
 """
 
+import json
 import re
 import signal
 import warnings
@@ -356,14 +357,25 @@ def test_halt_on_nonfinite_off_trains_through(tmp_path):
 
 
 @pytest.mark.parametrize(("key", "value"), [
-    ("split_phases", "true"), ("remat", '"conv"'), ("native_loader", "true"),
-    ("tensorboard", "true"), ("data_parallel", "2"), ("spatial_parallel", "2"),
-    ("r1_gamma", "10.0"), ("ema_decay", "0.999"), ("ada_supersample", "true"),
-    ("g_loss_split", "true"),
+    ("remat", '"conv"'), ("native_loader", "true"), ("tensorboard", "true"),
+    ("data_parallel", "2"), ("spatial_parallel", "2"), ("ada_supersample", "true"),
 ])
 def test_refused_tpu_keys_raise_by_name(tmp_path, key, value):
     with pytest.raises(NotImplementedError, match=rf"tpu\.{key} = .*not ported"):
         _trainer(_config(tmp_path, f"{key} = {value}"))
+
+
+@pytest.mark.parametrize(("key", "value"), [
+    ("split_phases", "true"), ("r1_gamma", "10.0"), ("ema_decay", "0.999"),
+    ("g_loss_split", "true"),
+])
+def test_ported_tpu_keys_train_a_step(tmp_path, key, value):
+    """The production config's options (R1 and the path term at step 0)."""
+    trainer = _trainer(_config(tmp_path, f"{key} = {value}\nr1_interval = 1", training_steps=1))
+    assert trainer.run().step == 1
+    means = [json.loads(ln) for ln in (_run_dir(trainer.config) / "metrics.jsonl").open()]
+    assert all(np.isfinite(v) for r in means for k, v in r.items() if k != "fid_extractor")
+    assert (trainer.state.ema_generator is not None) == (key == "ema_decay")
 
 
 def test_steps_per_call_is_clamped_with_a_warning(tmp_path):
