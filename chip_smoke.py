@@ -1,7 +1,8 @@
 """Drive the PyTorch port on one NVIDIA GPU, end to end: the 1->N serving
 path, the discriminator phase of training, the fused training step, the
 training run (the Trainer: data, logs, checkpoints, resume) and the
-production config's training options (EMA, lazy R1, split phases).
+production config's training options (EMA, lazy R1, split phases, the
+2x supersampled ADA warp, rematerialisation, the C++ image loader).
 
     python3 chip_smoke.py
 
@@ -109,7 +110,25 @@ started together), then runs, in order:
    engine's images the checkpoint's); the training CLI on the config's
    copy for 32 uninterrupted steps, its ``32.tar`` bitwise the resumed
    run's; and the fused step in groups of 8 for 16 steps, its ``16.tar``
-   bitwise the split run's.
+   bitwise the split run's;
+16. the slice's training options at phase 15's config: (a) the warp
+   forward and backward at the supersampled warp's [8, 1024, 1024]
+   (antialias off, on its 2x coordinates), float32 and bfloat16, against
+   their plain versions with phases 7 and 10's tolerances, two launches
+   bitwise equal, with the kernel's, plain version's, library call's
+   (float32) and bound's times; (b) the supersampled ``augment`` of two
+   512x512 images, card against CPU; (c) 4 steps with
+   ``ada_supersample = true``: every warp on the 2x grid, the launches of
+   each phase phase 15's, the step times beside phase 15's; (d) under
+   deterministic kernels, a path (and R1) step and another step under
+   ``remat`` none, conv and full: every metric, gradient leaf and
+   parameter bitwise equal to none's, each phase's time, peak memory and
+   exact launches (a recomputed pass launches its instance norms again);
+   (e) where the C++ image loader builds on the host (libjpeg and libpng
+   headers), its decode of the 512x512 folders and ``assemble_batch``
+   byte-equal to the PIL and numpy paths and a Trainer with
+   ``native_loader = true``; else it says why, and phases 15 and 16 run
+   with ``native_loader = false``.
 
 Any failed check raises, and the script exits non-zero. Before its last
 line it prints one JSON line ``{"kernels": [...]}``; its last line is
@@ -121,6 +140,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import io
 import json
 import os
@@ -328,6 +348,27 @@ R1_CPU_BATCH, R1_SIZE, R1_GAMMA = 4, 256, 10.0
 R1_LOSS_RTOL = 1e-4
 R1_GRAD_PINNED_RTOL = 1e-3
 R1_MAX_FLIP_SHARE = 3e-6
+# Phase 16: the slice's options at phase 15's config. (a) The supersampled
+# ADA warp runs the warp kernels without antialiasing on the 2x grid, at
+# 512^2 and batch 8 [8, 1024, 1024], held to the plain versions with
+# phases 7 and 10's tolerances; the plain backward (a dense contraction,
+# ~1 s a call there) is timed over fewer rounds.
+S_SHAPE = (P_BATCH, 2 * P_SIZE, 2 * P_SIZE)
+S_PLAIN_REPS = 3
+# (b) The supersampled augment, card against CPU, float32 (TF32 off), of 2
+# synthetic 512^2 images at p 0.9: the coordinates reach 1024, where a
+# float32 ulp is 6.1e-5 px, and the two sides' coordinate einsums may
+# differ by one; that moves a sample by up to the image's step between
+# neighbours times as much: limit CARD_VS_CPU_TOL.
+S_CPU_BATCH = 2
+# (c) Steps with ada_supersample = true from seed 0 at ADA p 0.6: step 0
+# an R1 and path step, 1-3 other steps; the launches per phase phase 15's.
+S_BARE_STEPS = 4
+# (d) One path (and R1) step and one other step from seed 0 under each
+# remat mode, remat_d "same", with deterministic kernels.
+REMAT_MODES = ("none", "conv", "full")
+# (e) Steps of the Trainer with native_loader = true, where it builds.
+S_NATIVE_STEPS = 2
 
 
 def log(msg: str) -> None:
@@ -2092,6 +2133,21 @@ def _exact_resume(torch, root: Path) -> dict:
 # ---------------------------------------------------------------- phase 15
 
 
+@contextlib.contextmanager
+def _determinism_restored(torch):
+    """The process's deterministic-kernel flags, restored after the block
+    (``Models`` sets them for ``deterministic_cuda_kernels``)."""
+    cudnn = torch.backends.cudnn
+    flags = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(), cudnn.deterministic,
+             cudnn.benchmark)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(flags[0], warn_only=flags[1])
+        cudnn.deterministic, cudnn.benchmark = flags[2], flags[3]
+
+
 def production_config(root: Path, run: str, **values):
     """Phase 15's config: ``configs/tpu_v5e8_512.toml`` as one card's copy
     (``presets.write_one_card_config``), on the folders under ``root``, run
@@ -2105,8 +2161,19 @@ def production_config(root: Path, run: str, **values):
                 "shoemark_data_dir": str(root / "marks"), "checkpoint_directory": str(root),
                 "training_run": run, "training_steps": P_STEPS, "log_interval": P_LOG,
                 "checkpoint_interval": P_CKPT, "n_evaluation_images": P_EVAL_IMAGES}
-    changes = write_one_card_config(PROD_CONFIG, path, **{**schedule, **values})
+    native = {} if _native_reason() is None else {"native_loader": False}
+    changes = write_one_card_config(PROD_CONFIG, path, **{**native, **schedule, **values})
     return load_config(path), changes
+
+
+@functools.cache
+def _native_reason() -> str | None:
+    """None where the C++ image loader builds on this host, else why not
+    (the compiler's message): there phases 15 and 16 run the production
+    config with native_loader = false."""
+    from one_to_many_gan_torch.data import native
+
+    return native.available()
 
 
 def _cuda_ms(torch, fn, reps: int) -> float:
@@ -2558,6 +2625,10 @@ def phase_production(torch) -> dict:
         out["overrides"] = {k: [str(flat.get(k)), str(v)] for k, v in changes.items()}
         for key, (old, new) in out["overrides"].items():
             log(f"production config override {key}: {old} -> {new}")
+        if _native_reason() is not None:
+            log("production config: native_loader = false, because the C++ image loader does "
+                "not build on this host (phase 16e): "
+                + " | ".join(_native_reason().splitlines()[:3]))
         check(config["tpu"]["ema_decay"] > 0 and config["tpu"]["r1_gamma"] > 0
               and config["tpu"]["split_phases"] and not config["tpu"]["g_loss_split"]
               and config["tpu"]["path_interval"] == P_INTERVAL
@@ -2572,17 +2643,402 @@ def phase_production(torch) -> dict:
             write_synthetic_dataset_dirs(root / domain, n_train=T_TRAIN_IMAGES,
                                          n_test=T_TEST_IMAGES, image_size=(P_SIZE, P_SIZE),
                                          seed=seed)
-        cudnn = torch.backends.cudnn
-        flags = (torch.are_deterministic_algorithms_enabled(),
-                 torch.is_deterministic_algorithms_warn_only_enabled(), cudnn.deterministic,
-                 cudnn.benchmark)
-        try:
+        with _determinism_restored(torch):
             out["run"] = _production_run(torch, root)
-        finally:
-            torch.use_deterministic_algorithms(flags[0], warn_only=flags[1])
-            cudnn.deterministic, cudnn.benchmark = flags[2], flags[3]
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"phase 15 ok in {out['wall_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------- phase 16
+
+
+def _bf16_excess(torch, got, want, bound) -> float:
+    """The largest error beyond one bf16 ulp, over ``bound`` (a number or a
+    per-pixel tensor): at most 1 where the kernel is within one ulp plus
+    its float32 summation bound."""
+    diff = (got.double() - want.double()).abs()
+    mag = torch.maximum(got.double().abs(), want.double().abs())
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(2.0**-126))) - 7)
+    return ((diff - ulp).clamp_min(0) / bound).max().item()
+
+
+def _ss_warp_sites(torch) -> list:
+    """(a) The warp forward and backward at the supersampled path's shape
+    and coordinates (S_SHAPE, antialias off, widths 1), float32 and
+    bfloat16, against their plain versions; two launches bitwise equal;
+    the kernel's, plain version's, library call's (float32) and bound's
+    times."""
+    import torch.nn.functional as F
+
+    from one_to_many_gan_torch.augment.pipeline import (
+        draw_augment,
+        geometric_matrix,
+        supersampled_coords,
+    )
+    from one_to_many_gan_torch.ops.cuda import (
+        warp,
+        warp_bwd,
+        warp_bwd_plain,
+        warp_bwd_sum_bound,
+        warp_plain,
+    )
+
+    b, h, w = S_SHAPE
+    gen = torch.Generator("cuda").manual_seed(16)
+    flush = torch.zeros(128 * 2**20, dtype=torch.uint8, device="cuda")
+    draws = draw_augment(gen, b, "cuda")
+    g_inv = geometric_matrix(draws.geom, P_SIZE, P_SIZE, torch.tensor(0.9, device="cuda"))
+    sx, sy = supersampled_coords(g_inv, P_SIZE, P_SIZE)
+    ones = torch.ones(b, device="cuda")
+    coords = (sx, sy, ones, ones)
+    taps = (_taps(torch, sx, ones, w, False) * _taps(torch, sy, ones, h, False)).sum().item()
+    # grid_sample, align_corners=True: pixel = (g + 1) / 2 * (n - 1)
+    grid = torch.stack([sx / (w - 1) * 2 - 1, sy / (h - 1) * 2 - 1], dim=-1)
+    cases = []
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        x = (torch.rand(S_SHAPE, generator=gen, device="cuda") * 2 - 1).to(dtype)
+        dout = torch.randn(S_SHAPE, generator=gen, device="cuda").to(dtype)
+        esize = x.element_size()
+        # each function reads its image (or cotangent) and both coordinate
+        # planes once and writes its output once
+        nbytes = b * h * w * (2 * esize + 8) + 2 * b * 4
+        bound = {"bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "ops_ms": 2 * taps / F32_FLOP_PER_S * 1e3}
+        bound["bound_ms"] = max(bound.values())
+        bound["bound_by"] = "bytes" if bound["bytes_ms"] >= bound["ops_ms"] else "operations"
+        for fn_name, kernel, plain, arg in (("warp_fwd", warp, warp_plain, x),
+                                            ("warp_bwd", warp_bwd, warp_bwd_plain, dout)):
+            got = kernel(arg, *coords, antialias=False)
+            again = kernel(arg, *coords, antialias=False)
+            want = plain(arg, *coords, antialias=False)
+            torch.cuda.synchronize()
+            err = (got.double() - want.double()).abs().max().item()
+            fns = {"kernel_ms": lambda t, k=kernel: k(t, *coords, antialias=False)}
+            lib_err = None
+            if dtype == torch.float32:
+                if fn_name == "warp_fwd":
+                    def lib(t):
+                        return F.grid_sample(t[:, None], grid, mode="bilinear",
+                                             padding_mode="zeros", align_corners=True)[:, 0]
+                else:
+                    def lib(t, img=x[:, None]):
+                        return torch.ops.aten.grid_sampler_2d_backward(
+                            t[:, None], img, grid, 0, 0, True, [True, False])[0][:, 0]
+                fns["library_ms"] = lib
+                lib_err = (lib(arg) - want).abs().max().item()
+            times = time_cold_ms(torch, fns, arg, flush)
+            # the plain versions are dense contractions here (the backward's
+            # 1 s a call): fewer rounds
+            times.update(time_cold_ms(torch, {"plain_ms": lambda t, p=plain: p(
+                t, *coords, antialias=False)}, arg, flush, reps=S_PLAIN_REPS))
+            case = {"fn": fn_name, "dtype": dtype_name, "shape": list(S_SHAPE),
+                    "max_abs_err": err, "library_err": lib_err,
+                    "repeat_bitwise_equal": torch.equal(got, again),
+                    "taps_per_pixel": taps / (b * h * w), **bound, **times,
+                    "library_ms": times.get("library_ms")}
+            if dtype == torch.bfloat16:
+                sum_bound = (WARP_TOL_BF16_SUM * x.abs().max().item() if fn_name == "warp_fwd"
+                             else warp_bwd_sum_bound(dout, *coords, antialias=False)
+                             .clamp_min(1e-300))
+                case["bf16_excess_of_sum_bound"] = _bf16_excess(torch, got, want, sum_bound)
+            cases.append(case)
+            lib_txt = ("library n/a (a bf16 grid cannot hold pixel coordinates)"
+                       if lib_err is None else
+                       f"library {case['library_ms']:.4f} ms (err {lib_err:.3g})")
+            log(f"{fn_name} [{b},{h},{w}] {dtype_name:8s} aa=0 (supersampled): max_abs_err "
+                f"{err:.3g} (bf16 beyond one ulp "
+                f"{case.get('bf16_excess_of_sum_bound', 0.0):.3f} of the sum bound) kernel "
+                f"{case['kernel_ms']:.4f} ms plain {case['plain_ms']:.4f} ms {lib_txt} bound "
+                f"{case['bound_ms']:.4f} ms ({case['bound_by']}); {case['taps_per_pixel']:.2f} "
+                "taps/pixel")
+            check(torch.isfinite(got).all().item(), f"{fn_name} output not finite: {case}")
+            check(case["repeat_bitwise_equal"], f"two {fn_name} launches differ: {case}")
+            if dtype == torch.float32:
+                check(err <= WARP_TOL_F32, f"{fn_name} disagrees with its plain version: {case}")
+            else:
+                check(case["bf16_excess_of_sum_bound"] <= 1.0 and err <= WARP_TOL_BF16_ABS,
+                      f"bf16 {fn_name} disagrees with its plain version: {case}")
+            del got, again, want
+        del x, dout
+    del flush
+    torch.cuda.empty_cache()
+    return cases
+
+
+def _ss_card_vs_cpu(torch) -> dict:
+    """(b) The supersampled ``augment`` of S_CPU_BATCH synthetic 512^2
+    images at p 0.9, float32, on the card and on the CPU, same draws."""
+    from one_to_many_gan_torch.augment.pipeline import augment, draw_augment
+    from one_to_many_gan_torch.data import normalize_u8, synthetic_images
+
+    images = torch.from_numpy(normalize_u8(synthetic_images(S_CPU_BATCH, (P_SIZE, P_SIZE),
+                                                            seed=16)))
+    draws = draw_augment(torch.Generator().manual_seed(16), S_CPU_BATCH, "cpu")
+    t0 = time.perf_counter()
+    cpu = augment(images, 0.9, draws, supersample=True)
+    cpu_s = time.perf_counter() - t0
+    card = augment(images.cuda(), 0.9, _to(draws, "cuda"), supersample=True).cpu()
+    err = (card - cpu).abs().max().item()
+    moved = (cpu - images).abs().max().item()
+    log(f"supersampled augment [{S_CPU_BATCH},{P_SIZE},{P_SIZE}] f32, card against CPU: max "
+        f"abs {err:.3g} (limit {CARD_VS_CPU_TOL}); the transform moved pixels by up to "
+        f"{moved:.3g}; the CPU took {cpu_s:.2f} s")
+    check(card.shape == images.shape and torch.isfinite(card).all().item(),
+          "the card's supersampled augment is not finite or has another shape")
+    check(moved > 0.1, "the supersampled augment left the images in place")
+    check(err <= CARD_VS_CPU_TOL, f"supersampled augment card against CPU: {err}")
+    return {"max_abs_err": err, "moved": moved, "cpu_s": cpu_s}
+
+
+def _timed_phases(torch, counters, run_d, run_g) -> dict:
+    """One D phase and one G phase, each synchronised: their ms, peak
+    bytes and launches."""
+    out = {}
+    for name, fn in (("d", run_d), ("g", run_g)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        c0 = [c.launches for c in counters]
+        t0 = time.perf_counter()
+        out[f"{name}_metrics"] = fn()
+        torch.cuda.synchronize()
+        out[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        out[f"{name}_peak"] = torch.cuda.max_memory_allocated()
+        out[f"{name}_launches"] = _phase_counts(counters, c0)
+    return out
+
+
+def _want_launches(step: int, mode: str = "none") -> tuple[list, list]:
+    """The exact launches (warp, warp backward, instance norm) of one D and
+    one G phase of the production config at ``step``: under remat the G
+    phase's every instance norm runs again in the backward's recompute and
+    the D phase's discriminator pass's (the trunk on the packed batch)."""
+    again = mode != "none"
+    d_in = (len(P_D_IN_SITES) + (len(P_R1_IN_SITES) if step % P_R1_INTERVAL == 0 else 0)
+            + (len(_TRUNK_512) if again else 0))
+    return ([P_D_WARPS, 0, d_in], [P_G_WARPS, P_G_WARP_BWDS, len(P_G_IN_SITES) * (1 + again)])
+
+
+def _steps(torch, config, n: int, counters, collect=None) -> list:
+    """``n`` steps of ``config`` from seed 0 at ADA p D_ADA_P on synthetic
+    batches, each phase timed (``_timed_phases``) and its launches checked;
+    ``collect(state, phase, metrics)`` sees each phase's results."""
+    from one_to_many_gan_torch import train
+    from one_to_many_gan_torch.core.train_step import (
+        Batches,
+        draw_step,
+        make_d_phase,
+        make_g_phase,
+        synthetic_batch,
+    )
+
+    mode = config["tpu"]["remat"]
+    models, state, gen = train.setup(config, seed=0, ada_p=D_ADA_P, device="cuda")
+    d_phase, g_phase = make_d_phase(config, models), make_g_phase(config, models)
+    rows = []
+    for step in range(n):
+        b = Batches(*(synthetic_batch(gen, P_BATCH, (P_SIZE, P_SIZE), 1) for _ in range(4)))
+        draws = draw_step(gen, config, models)
+        p_used = state.ada.p
+
+        def run_d(b=b, draws=draws):
+            _, m = d_phase(state, b.d_shoeprints, b.d_shoemarks, draws.d)
+            if collect is not None:
+                collect(state, "d", m)
+            return m
+
+        def run_g(b=b, draws=draws, p_used=p_used):
+            _, m = g_phase(state, b, draws.g, p_used)
+            if collect is not None:
+                collect(state, "g", m)
+            return m
+
+        row = _timed_phases(torch, counters, run_d, run_g)
+        m = {k: v.item() for k, v in {**row.pop("d_metrics"), **row.pop("g_metrics")}.items()}
+        row = {"step": step, **row, "ms": row["d_ms"] + row["g_ms"], **m}
+        rows.append(row)
+        want_d, want_g = _want_launches(step, mode)
+        check(row["d_launches"] == want_d and row["g_launches"] == want_g,
+              f"step {step} (remat {mode}): D launches {row['d_launches']} (want {want_d}), "
+              f"G {row['g_launches']} (want {want_g})")
+        check(all(np.isfinite(v) for k, v in m.items() if k != "ada_p"),
+              f"step {step}: a metric is not finite: {m}")
+        check(m["path_loss"] > 0 if step % P_INTERVAL == 0 else m["path_loss"] == 0,
+              f"step {step}: path_loss {m['path_loss']}")
+    return rows
+
+
+def _ss_bare_steps(torch, config, bare15: dict) -> dict:
+    """(c) S_BARE_STEPS steps with ``ada_supersample``: every warp on the
+    [8, 1024, 1024] grid, the launches per phase phase 15's, the step
+    times beside phase 15's."""
+    from one_to_many_gan_torch.augment import pipeline
+    from one_to_many_gan_torch.ops.cuda import fused_instance_norm, warp, warp_bwd
+
+    counters = (warp, warp_bwd, fused_instance_norm)
+    shapes = []
+    kernel = pipeline.warp
+
+    def spy(images, *args, **kwargs):
+        shapes.append(tuple(images.shape))
+        return kernel(images, *args, **kwargs)
+
+    pipeline.warp = spy
+    try:
+        for c in counters:
+            c.launches = 0
+        rows = _steps(torch, config, S_BARE_STEPS, counters)
+        launches = dict(zip(("warp_fwd", "warp_bwd", "instance_norm"),
+                            (c.launches for c in counters), strict=True))
+    finally:
+        pipeline.warp = kernel
+    check(shapes == [S_SHAPE] * (P_D_WARPS + P_G_WARPS) * S_BARE_STEPS,
+          f"the supersampled steps warped {shapes}")
+    other = statistics.fmean(r["ms"] for r in rows[1:])
+    base = bare15["median"]
+    log(f"supersampled ADA steps ({P_SIZE}x{P_SIZE}, batch {P_BATCH}, bf16; every warp "
+        f"[{','.join(map(str, S_SHAPE))}]): step 0 (R1 + path) {rows[0]['ms']:.2f} ms (D "
+        f"{rows[0]['d_ms']:.2f}, G {rows[0]['g_ms']:.2f}; phase 15's median "
+        f"{base['r1_path']['ms']:.2f}), other steps mean {other:.2f} ms (D "
+        f"{statistics.fmean(r['d_ms'] for r in rows[1:]):.2f}, G "
+        f"{statistics.fmean(r['g_ms'] for r in rows[1:]):.2f}; phase 15's median "
+        f"{base['other']['ms']:.2f}, x{other / base['other']['ms']:.3f}); G peak "
+        f"{max(r['g_peak'] for r in rows) / 2**30:.2f} GiB; launches {launches}")
+    return {"rows": rows, "other_mean_ms": other, "over_phase15_other": other / base["other"]["ms"],
+            "launches": launches}
+
+
+def _remat_steps(torch, base) -> dict:
+    """(d) Under deterministic kernels, a path (and R1) step and another
+    step from seed 0 under each remat mode (remat_d same): every metric,
+    every gradient leaf of both phases and the parameters after them
+    bitwise equal to "none"'s; each phase's ms, peak and exact launches."""
+    from one_to_many_gan_torch.ops.cuda import fused_instance_norm, warp, warp_bwd
+
+    counters = (warp, warp_bwd, fused_instance_norm)
+    out: dict = {"modes": {}}
+    ref = None
+    with _determinism_restored(torch):
+        for mode in REMAT_MODES:
+            config = copy.deepcopy(base)
+            config["training"]["deterministic_cuda_kernels"] = True
+            config["tpu"]["remat"], config["tpu"]["remat_d"] = mode, "same"
+            seen = []
+            last = {}
+
+            def collect(state, phase, metrics, seen=seen, last=last):
+                nets = ((state.discriminator,) if phase == "d"
+                        else (state.generator, state.mapping, state.extractor))
+                seen.extend(v.detach().cpu() for v in metrics.values())
+                seen.extend(p.grad.cpu() for net in nets for p in net.parameters())
+                last["state"] = state
+
+            for c in counters:
+                c.launches = 0
+            rows = _steps(torch, config, 2, counters, collect)
+            check(torch.are_deterministic_algorithms_enabled(), "remat ran without determinism")
+            state = last.pop("state")
+            seen.extend(p.detach().cpu() for net in (state.discriminator, state.generator,
+                                                    state.mapping, state.extractor)
+                        for p in net.parameters())
+            del state
+            launches = dict(zip(("warp_fwd", "warp_bwd", "instance_norm"),
+                                (c.launches for c in counters), strict=True))
+            if ref is None:
+                ref = seen
+                differ = []
+            else:
+                check(len(seen) == len(ref), f"remat {mode}: {len(seen)} tensors, none "
+                      f"{len(ref)}")
+                differ = [i for i, (a, b) in enumerate(zip(seen, ref, strict=True))
+                          if not torch.equal(a, b)]
+            out["modes"][mode] = {"rows": rows, "launches": launches, "differ": differ,
+                                  "compared": len(seen)}
+            gib = [(r["d_peak"] / 2**30, r["g_peak"] / 2**30) for r in rows]
+            log(f"remat {mode} (remat_d same, deterministic; {P_SIZE}x{P_SIZE}, batch "
+                f"{P_BATCH}, bf16): path + R1 step D {rows[0]['d_ms']:.2f} ms G "
+                f"{rows[0]['g_ms']:.2f} ms, other step D {rows[1]['d_ms']:.2f} ms G "
+                f"{rows[1]['g_ms']:.2f} ms; peak GiB D {gib[0][0]:.2f}/{gib[1][0]:.2f} G path "
+                f"{gib[0][1]:.2f} other {gib[1][1]:.2f}; launches D {rows[0]['d_launches']} "
+                f"{rows[1]['d_launches']}, G {rows[0]['g_launches']}; {len(seen)} tensors "
+                f"against none's, {len(differ)} differ")
+            check(not differ, f"remat {mode}: tensors {differ[:10]} differ from none's")
+            torch.cuda.empty_cache()
+    out["launches"] = {k: sum(m["launches"][k] for m in out["modes"].values())
+                       for k in ("warp_fwd", "warp_bwd", "instance_norm")}
+    return out
+
+
+def _native_loader(torch, root: Path) -> dict:
+    """(e) Where the C++ loader builds on this host: its decode of the
+    512^2 folders (written at that size) against the PIL path, byte for
+    byte, and its seconds against PIL's; ``assemble_batch`` against the
+    numpy gather, flip and ``x * (1 / 127.5) - 1``; then S_NATIVE_STEPS
+    steps of the Trainer with ``native_loader = true``."""
+    from one_to_many_gan_torch.core.trainer import Trainer
+    from one_to_many_gan_torch.data import ShoeDataset, native, write_synthetic_dataset_dirs
+    from one_to_many_gan_torch.ops.cuda import fused_instance_norm, warp, warp_bwd
+
+    reason = _native_reason()
+    if reason is not None:
+        log("phase 16e: the native loader does not build on this host, so phases 15 and 16 "
+            "keep native_loader = false: " + " | ".join(reason.splitlines()[:3]))
+        return {"built": False, "reason": reason}
+    for domain, seed in (("prints", 0), ("marks", 9)):
+        write_synthetic_dataset_dirs(root / domain, n_train=T_TRAIN_IMAGES,
+                                     n_test=T_TEST_IMAGES, image_size=(P_SIZE, P_SIZE),
+                                     seed=seed)
+    kw = {"mode": "train", "image_size": (P_SIZE, P_SIZE), "channels": 1}
+    t0 = time.perf_counter()
+    pil = ShoeDataset(root / "prints", **kw).images
+    pil_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nat = ShoeDataset(root / "prints", native=True, **kw).images
+    native_s = time.perf_counter() - t0
+    check(np.array_equal(pil, nat), "the native decode differs from PIL's at the images' size")
+    rng = np.random.default_rng(16)
+    idx, flips = rng.permutation(len(nat))[:P_BATCH], rng.random(P_BATCH) < 0.5
+    batch = nat[idx]
+    batch[flips] = batch[flips, :, ::-1]
+    want = batch.astype(np.float32) * np.float32(1 / 127.5) - np.float32(1)
+    check(np.array_equal(native.assemble_batch(nat, idx, flips), want),
+          "assemble_batch differs from the numpy gather, flip and normalisation")
+    counters = (warp, warp_bwd, fused_instance_norm)
+    config, _ = production_config(root, "n", native_loader=True, training_steps=S_NATIVE_STEPS)
+    for c in counters:
+        c.launches = 0
+    trainer = Trainer(config, verbose=False)
+    check(trainer.shoeprint_iter.native, "the Trainer's streams are not native")
+    check(trainer.run().step == S_NATIVE_STEPS, "the native-loader Trainer stopped early")
+    launches = dict(zip(("warp_fwd", "warp_bwd", "instance_norm"),
+                        (c.launches for c in counters), strict=True))
+    log(f"native loader: {len(nat)} images of {P_SIZE}x{P_SIZE} decoded in {native_s:.3f} s "
+        f"(PIL {pil_s:.3f} s), byte-equal to PIL's; assemble_batch byte-equal to numpy's; "
+        f"the Trainer with native_loader = true trained {S_NATIVE_STEPS} steps; launches "
+        f"{launches}")
+    return {"built": True, "native_s": native_s, "pil_s": pil_s, "launches": launches}
+
+
+def phase_slice7(torch, production: dict) -> dict:
+    """The slice's training options on the production config (module
+    docstring, phase 16)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    out: dict = {"ss_warp": _ss_warp_sites(torch)}
+    out["ss_card_vs_cpu"] = _ss_card_vs_cpu(torch)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_slice7_") as tmp:
+        root = Path(tmp)
+        config, _ = production_config(root, "s")
+        ss_config = copy.deepcopy(config)
+        ss_config["tpu"]["ada_supersample"] = True
+        out["ss_steps"] = _ss_bare_steps(torch, ss_config, production["bare"])
+        torch.cuda.empty_cache()
+        out["remat"] = _remat_steps(torch, config)
+        torch.cuda.empty_cache()
+        out["native"] = _native_loader(torch, root)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 16 ok in {out['wall_s']:.1f} s")
     return out
 
 
@@ -2631,17 +3087,26 @@ def main() -> int:
     report["trainer"] = phase_trainer(torch, report["fused_step"])
     torch.cuda.empty_cache()
     report["production"] = phase_production(torch)
+    torch.cuda.empty_cache()
+    report["slice7"] = phase_slice7(torch, report["production"])
 
     fused = report["fused_step"]["launches"]
     enc = report["kernels"]["per_encode"]["float32_b1"]
     f32_cases = [k for k in report["kernels"]["cases"] if k["dtype"] == "float32"]
     trained = report["trainer"]["a"]["launches"]
     prod = report["production"]["run"]["launches"]
+    slice7 = report["slice7"]
+    # phase 16's main paths, each counted from 0 around its run
+    s7 = {"supersampled steps (phase 16c)": slice7["ss_steps"]["launches"],
+          "remat steps (phase 16d)": slice7["remat"]["launches"]}
+    if slice7["native"]["built"]:
+        s7["native-loader Trainer (phase 16e)"] = slice7["native"]["launches"]
     in_by_phase = {"serve (phase 3)": report["serve"]["launches"],
                    "D phase (phase 8)": report["d_phase"]["in_launches"],
                    "fused step (phase 11)": fused["instance_norm"],
                    "Trainer (phase 14)": trained["instance_norm"],
-                   "production Trainer (phase 15)": prod["instance_norm"]}
+                   "production Trainer (phase 15)": prod["instance_norm"],
+                   **{k: v["instance_norm"] for k, v in s7.items()}}
     kernels = [{
         "name": "instance_norm",
         "route": "cuda",
@@ -2675,7 +3140,14 @@ def main() -> int:
     fwd_by_phase = {"D phase (phase 8)": report["d_phase"]["warp_launches"],
                     "fused step (phase 11)": fused["warp_fwd"],
                     "Trainer (phase 14)": trained["warp_fwd"],
-                    "production Trainer (phase 15)": prod["warp_fwd"]}
+                    "production Trainer (phase 15)": prod["warp_fwd"],
+                    **{k: v["warp_fwd"] for k, v in s7.items()}}
+
+    def supersampled(fn: str) -> dict:
+        """Phase 16a's cases of ``fn`` at S_SHAPE, antialias off."""
+        return {c["dtype"]: {k: c[k] for k in ("kernel_ms", "plain_ms", "library_ms",
+                                                 "bound_ms", "bound_by", "max_abs_err")}
+                for c in slice7["ss_warp"] if c["fn"] == fn}
     kernels.append({
         "name": "warp_fwd",
         "route": "cuda",
@@ -2694,8 +3166,9 @@ def main() -> int:
         "grid_sample_ms_antialias_off_f32": off_case["library_ms"],
         "kernel_ms_antialias_off_f32": off_case["kernel_ms"],
         "production_site_bf16_aa": at_512("warp"),
+        "supersampled_site_8x1024x1024_aa_off": supersampled("warp_fwd"),
         "launches_by_phase": fwd_by_phase,
-        "checked_in": "phase 7",
+        "checked_in": "phases 7 and 16a",
     })
     b_case, b_off = warp_case("warp_bwd", "bfloat16", True), warp_case("warp_bwd", "float32", False)
     kernels.append({
@@ -2703,7 +3176,8 @@ def main() -> int:
         "route": "cuda",
         "source": "one_to_many_gan_torch/csrc/warp.cu",
         "replaces": WARP_BWD_REPLACES,
-        "launches": fused["warp_bwd"] + trained["warp_bwd"] + prod["warp_bwd"],
+        "launches": (fused["warp_bwd"] + trained["warp_bwd"] + prod["warp_bwd"]
+                     + sum(v["warp_bwd"] for v in s7.values())),
         "max_abs_err": max(c["max_abs_err"] for c in report["warp_bwd"]["cases"]
                            if c["dtype"] == "float32"),
         "ms": b_case["kernel_ms"],
@@ -2718,10 +3192,12 @@ def main() -> int:
         "grid_sampler_2d_backward_ms_antialias_off_f32": b_off["library_ms"],
         "kernel_ms_antialias_off_f32": b_off["kernel_ms"],
         "production_site_bf16_aa": at_512("warp_bwd"),
+        "supersampled_site_8x1024x1024_aa_off": supersampled("warp_bwd"),
         "launches_by_phase": {"fused step (phase 11)": fused["warp_bwd"],
                               "Trainer (phase 14)": trained["warp_bwd"],
-                              "production Trainer (phase 15)": prod["warp_bwd"]},
-        "checked_in": "phase 10",
+                              "production Trainer (phase 15)": prod["warp_bwd"],
+                              **{k: v["warp_bwd"] for k, v in s7.items()}},
+        "checked_in": "phases 10 and 16a",
     })
     report["wall_s"] = time.perf_counter() - t_start
     log(f"chip_smoke wall time {report['wall_s']:.1f} s")

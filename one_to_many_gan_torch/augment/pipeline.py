@@ -19,17 +19,21 @@ replace the Pallas warp kernels (forward and image cotangent), so
 needs. The port always takes those kernels' numerics (the JAX package's
 ``tpu.ada_pallas`` is a TPU choice between them and an XLA contraction
 that rounds differently in bfloat16). The antialiased warp widens the
-tent per image and per axis; the true 2x supersampled warp
-(``tpu.ada_supersample``) is not ported (ROADMAP.md).
+tent per image and per axis; ``supersample`` (``tpu.ada_supersample``)
+runs the published 2x supersampled warp instead: a sym6 2x upsample, the
+same warp kernels without antialiasing on the 2x grid, a sym6 2x
+downsample (``warp_supersampled``).
 
 Images are NHWC at this module's functions, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from one_to_many_gan_torch.ops.cuda.warp import AA_MAX_WIDTH, warp
@@ -249,13 +253,19 @@ def tent_widths(
     return width_x, width_y
 
 
-def warp_images(images: torch.Tensor, g_inv: torch.Tensor, *, antialias: bool) -> torch.Tensor:
+def warp_images(
+    images: torch.Tensor, g_inv: torch.Tensor, *, antialias: bool, supersample: bool = False
+) -> torch.Tensor:
     """Affine warp of single-channel NHWC images, zero outside the frame,
     through the warp kernels (``ops/cuda/warp.py``), which take contiguous
     images: a strided view (the G phase's translations are every third
-    image of one decode) is copied first. Differentiable in the images
-    only: the coordinates and widths are detached, as the JAX package
-    stops their gradient (they come from the draws)."""
+    image of one decode) is copied first. ``supersample`` runs
+    ``warp_supersampled`` instead (it overrides ``antialias``).
+    Differentiable in the images only: the coordinates and widths are
+    detached, as the JAX package stops their gradient (they come from the
+    draws)."""
+    if supersample:
+        return warp_supersampled(images, g_inv)
     b, h, w, c = images.shape
     if c != 1:
         msg = f"the ADA warp takes single-channel images, got {c} channels"
@@ -264,6 +274,124 @@ def warp_images(images: torch.Tensor, g_inv: torch.Tensor, *, antialias: bool) -
     width_x, width_y = tent_widths(g_inv.detach(), antialias=antialias)
     return warp(images[..., 0].contiguous(), sx, sy, width_x, width_y,
                 antialias=antialias)[..., None]
+
+
+# sym6 scaling (low-pass) filter, the public wavelet constants (sum sqrt 2):
+# the published ADA pipeline's filter for its 2x supersampled warp.
+SYM6_LO = np.array([
+    0.015404109327027373, 0.0034907120842174702, -0.11799011114819057, -0.048311742585633,
+    0.4910559419267466, 0.787641141030194, 0.3379294217276218, -0.07263752278646252,
+    -0.021060292512300564, 0.04472490177066578, 0.0017677118642428036, -0.007800708325034148,
+])
+
+
+@functools.lru_cache(maxsize=8)
+def ss_updown_ops(n: int) -> tuple[np.ndarray, np.ndarray, float, float]:
+    """(U [2n, n], D [n, 2n], a_up, a_dn): the dense sym6 2x up and down
+    operators along an axis of ``n`` pixels and their sample phases, in
+    float64, the JAX package's ``_ss_updown_ops`` bit for bit.
+
+    The even-length filter has half-sample phases, so the shift pair is
+    self-calibrated: the (c_up, c_dn) whose ``D @ U`` is closest to the
+    identity in the interior of a probe of min(n, 64) pixels (the choice
+    is shift-invariant there); then the phases are measured from the
+    operators' row centroids. Upsampled pixel j stands for input
+    coordinate (j - a_up) / 2, and down-output i reads its centroid at
+    upsampled position 2 i + a_dn."""
+    f = SYM6_LO / SYM6_LO.sum()  # DC gain 1
+    length = len(f)
+    idx_n = np.arange(n)
+    idx_2n = np.arange(2 * n)
+
+    def up_op(c, m):  # u[j, i] = 2 f[j - 2i + c]
+        k = idx_2n[: 2 * m, None] - 2 * idx_n[None, :m] + c
+        return np.where((k >= 0) & (k < length), 2 * f[np.clip(k, 0, length - 1)], 0.0)
+
+    def down_op(c, m):  # d[i, j] = f[j - 2i + c]
+        k = idx_2n[None, : 2 * m] - 2 * idx_n[:m, None] + c
+        return np.where((k >= 0) & (k < length), f[np.clip(k, 0, length - 1)], 0.0)
+
+    m = min(n, 64)
+    best = None
+    for c_up in range(length):
+        u_m = up_op(c_up, m)
+        for c_dn in range(length):
+            err = np.abs(down_op(c_dn, m) @ u_m - np.eye(m))[4:-4, 4:-4].sum()
+            if best is None or err < best[0]:
+                best = (err, c_up, c_dn)
+    _, c_up, c_dn = best
+    u, d = up_op(c_up, n), down_op(c_dn, n)
+    a_up = n - 2 * (u[n] @ idx_n / u[n].sum())
+    i_mid = n // 2
+    a_dn = (d[i_mid] @ idx_2n / d[i_mid].sum()) - 2 * i_mid
+    return u, d, float(a_up), float(a_dn)
+
+
+_OPS_CACHE: dict = {}
+
+
+def _ss_tensors(n: int, dtype: torch.dtype, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``ss_updown_ops(n)``'s U and D in ``dtype`` on ``device``, made once
+    (normal tensors even under ``torch.inference_mode``)."""
+    key = (n, dtype, str(device))
+    if key not in _OPS_CACHE:
+        u, d, _, _ = ss_updown_ops(n)
+        with torch.inference_mode(False):
+            _OPS_CACHE[key] = tuple(torch.from_numpy(a).to(device=device, dtype=dtype)
+                                    for a in (u, d))
+    return _OPS_CACHE[key]
+
+
+def supersampled_coords(
+    g_inv: torch.Tensor, height: int, width: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Source coordinates (sx, sy), each [B, 2H, 2W], of the 2x output grid
+    in the 2x upsampled image's pixels: 2x output pixel j stands for output
+    coordinate (j - a_dn) / 2, mapped through ``g_inv`` (centred), then to
+    upsampled pixels through a_up (the JAX package's ``_warp_supersampled``)."""
+    _, _, a_up_h, a_dn_h = ss_updown_ops(height)
+    _, _, a_up_w, a_dn_w = ss_updown_ops(width)
+    device = g_inv.device
+    oy = (torch.arange(2 * height, dtype=torch.float32, device=device) - a_dn_h) / 2.0 \
+        - (height - 1) / 2.0
+    ox = (torch.arange(2 * width, dtype=torch.float32, device=device) - a_dn_w) / 2.0 \
+        - (width - 1) / 2.0
+    gy, gx = torch.meshgrid(oy, ox, indexing="ij")
+    grid = torch.stack([gx, gy, torch.ones_like(gx)], dim=-1)  # [2H,2W,3]
+    src = torch.einsum("bij,hwj->bhwi", g_inv, grid)
+    sx = 2.0 * (src[..., 0] + (width - 1) / 2.0) + a_up_w
+    sy = 2.0 * (src[..., 1] + (height - 1) / 2.0) + a_up_h
+    return sx.contiguous(), sy.contiguous()
+
+
+def warp_supersampled(images: torch.Tensor, g_inv: torch.Tensor) -> torch.Tensor:
+    """The published 2x supersampled ADA warp of single-channel NHWC images
+    (``tpu.ada_supersample``; the JAX package's ``_warp_supersampled``):
+    the sym6 2x upsample along H, then along W (two matmuls with the dense
+    operators of ``ss_updown_ops``, in the images' dtype and JAX's order of
+    contraction), the warp kernel without antialiasing (tents of width 1)
+    on the [B, 2H, 2W] grid, then the sym6 2x downsample along H, then
+    along W. About 16x the direct warp's work. An identity transform is
+    exact only in the interior: ``D @ U`` departs from the identity at the
+    zero-extended borders, as in the published pipeline.
+
+    Differentiable in the images only, as every warp of the port: the
+    coordinates come from ``g_inv``, which comes from the draws, and are
+    detached. (The JAX function is also differentiable in ``g_inv``;
+    training never uses that.)"""
+    b, h, w, c = images.shape
+    if c != 1:
+        msg = f"the ADA warp takes single-channel images, got {c} channels"
+        raise ValueError(msg)
+    uh, dh = _ss_tensors(h, images.dtype, images.device)
+    uw, dw = _ss_tensors(w, images.dtype, images.device)
+    x = torch.matmul(uh, images[..., 0])  # [B, 2H, W]
+    x = torch.matmul(x, uw.T)  # [B, 2H, 2W]
+    sx, sy = supersampled_coords(g_inv.detach().float(), h, w)
+    ones = torch.ones(b, dtype=torch.float32, device=images.device)
+    x = warp(x.contiguous(), sx, sy, ones, ones, antialias=False)
+    x = torch.matmul(dh, x)  # [B, H, 2W]
+    return torch.matmul(x, dw.T)[..., None]  # [B, H, W, 1]
 
 
 def apply_color(images: torch.Tensor, cmat: torch.Tensor) -> torch.Tensor:
@@ -284,12 +412,14 @@ def apply_color(images: torch.Tensor, cmat: torch.Tensor) -> torch.Tensor:
 
 
 def augment(
-    images: torch.Tensor, p, draws: AugmentDraws, *, antialias: bool = True
+    images: torch.Tensor, p, draws: AugmentDraws, *, antialias: bool = True,
+    supersample: bool = False,
 ) -> torch.Tensor:
     """ADA augmentation of an NHWC batch with application probability ``p``
-    (the controller's output), deterministic given ``draws``."""
+    (the controller's output), deterministic given ``draws``;
+    ``supersample`` takes the 2x supersampled warp (``warp_images``)."""
     b, h, w, c = images.shape
     p = torch.as_tensor(p, dtype=torch.float32, device=images.device)
     g_inv = geometric_matrix(draws.geom, h, w, p)
-    out = warp_images(images, g_inv, antialias=antialias)
+    out = warp_images(images, g_inv, antialias=antialias, supersample=supersample)
     return apply_color(out, color_matrix(draws.color, c, p))

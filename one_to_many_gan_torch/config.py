@@ -4,10 +4,11 @@ Reads the same schema as the JAX package (``configs/default.toml``): the
 six reference sections plus the optional ``[tpu]`` section, whose
 defaults are filled in below. Of ``[tpu]`` the port reads ``precision``
 ("float32" or "bfloat16" activations) and, for training,
-``ada_antialias``, ``path_interval``, ``ema_decay``, ``r1_gamma``,
-``r1_interval``, ``split_phases`` and ``g_loss_split``;
-``check_training_options`` refuses the training options it does not run
-yet. ``ada_pallas`` chooses between two TPU
+``ada_antialias``, ``ada_supersample``, ``path_interval``, ``ema_decay``,
+``r1_gamma``, ``r1_interval``, ``remat``, ``remat_d``, ``split_phases``,
+``g_loss_split``, ``native_loader`` and ``tensorboard``;
+``check_training_options`` refuses more than one device, which the port
+does not run yet. ``ada_pallas`` chooses between two TPU
 implementations of the ADA warp; the port always computes the Pallas
 kernel's numerics, so it ignores the key; ``compilation_cache_dir`` is a
 JAX compile cache, also ignored. The other keys are validated so that
@@ -121,26 +122,15 @@ def n_downsamples(config: Config) -> int:
     return math.ceil(math.log2(min_res / config["architecture"]["min_latent_resolution"]))
 
 
-# [tpu] training options the port does not run yet, with their off value.
-_NOT_PORTED = {"ada_supersample": False, "native_loader": False, "tensorboard": False}
-
-
 def check_training_options(config: Config) -> None:
     """Raise ``NotImplementedError``, naming the key, for a training option
-    the port does not run yet: the 2x supersampled ADA warp
-    (``ada_supersample``), rematerialisation (``remat`` other than "none"), the C++ data loader (``native_loader``),
-    TensorBoard (``tensorboard``), and more than one device
-    (``data_parallel`` other than 1 or -1, ``spatial_parallel > 1``; -1, all
-    devices, is the one card the port trains on).
-    Lazy R1 (``r1_gamma``, ``r1_interval``), generator EMA (``ema_decay``),
-    the D and G phases as two calls a step (``split_phases``), the generator
-    loss's two accumulated sub-backwards (``g_loss_split``) and
-    ``training.deterministic_cuda_kernels`` are not refused:
-    ``core/train_step.py``, ``core/trainer.py`` and ``Models`` run them."""
+    the port does not run yet: more than one device (``data_parallel``
+    other than 1 or -1, ``spatial_parallel > 1``; -1, all devices, is the
+    one card the port trains on). Every other training option runs:
+    ``core/train_step.py``, ``core/trainer.py``, ``data/`` and ``Models``
+    take them."""
     tpu = config["tpu"]
-    refused = [(key, off) for key, off in _NOT_PORTED.items() if tpu[key]]
-    if tpu["remat"] != "none":
-        refused.append(("remat", "none"))
+    refused = []
     if tpu["data_parallel"] not in (1, -1):
         refused.append(("data_parallel", 1))
     if tpu["spatial_parallel"] > 1:

@@ -62,9 +62,16 @@ Every draw is injected (``DPhaseDraws``, ``GPhaseDraws``: the JAX phases'
 keys 0-3 and 4-9 of one ``split(rng, 10)``; ``draw_step`` makes them from
 a ``torch.Generator``). Batches are NHWC in [-1, 1], as in the JAX
 package. The metrics keep the JAX names and stay on the device (0-d
-tensors): reading them is the caller's sync. The supersampled warp is
-not ported yet (ROADMAP.md): ``check_training_options`` refuses a config
-that turns it on.
+tensors): reading them is the caller's sync.
+
+``tpu.ada_supersample`` takes the 2x supersampled warp in all three
+augment calls (the D phase's fakes and reals, the G phase's
+translations). ``tpu.remat`` ("none", "conv", "full"; ``ops/remat.py``)
+recomputes the G phase's model passes in its backward: the encode, the
+decode, the extract, both extractor passes and the discriminator's
+scoring; ``tpu.remat_d`` (``"same"`` follows ``remat``) the D phase's
+discriminator pass. The R1 term's pass is never wrapped, as in the JAX
+package. Losses and gradients are bitwise the same under every mode.
 """
 
 from __future__ import annotations
@@ -95,6 +102,7 @@ from one_to_many_gan_torch.losses import (
     style_cycle_loss,
 )
 from one_to_many_gan_torch.models import StyleRngs, apply_domain, draw_style_rngs
+from one_to_many_gan_torch.ops.remat import make_ckpt
 
 
 class Batches(NamedTuple):
@@ -159,14 +167,23 @@ def _nchw(x: torch.Tensor, device: torch.device) -> torch.Tensor:
     return x.to(device).permute(0, 3, 1, 2).contiguous()
 
 
-def d_loss_and_grad(discriminator, aug_fake: torch.Tensor, aug_real: torch.Tensor):
+def _remat_modes(config: Config) -> tuple[str, str]:
+    """(G phase, D phase) rematerialisation modes of ``config``."""
+    g_mode, d_mode = config["tpu"]["remat"], config["tpu"]["remat_d"]
+    return g_mode, g_mode if d_mode == "same" else d_mode
+
+
+def d_loss_and_grad(
+    discriminator, aug_fake: torch.Tensor, aug_real: torch.Tensor, ckpt=make_ckpt("none")
+):
     """One discriminator forward and backward on the packed [fake; real]
-    batch (NHWC). The gradients go to the parameters' ``.grad`` (set
-    anew). -> (loss, real_scores, fake_scores), detached, scores NHWC in
-    float32 (float64 for a float64 discriminator)."""
+    batch (NHWC), the forward through ``ckpt`` (``ops/remat.py``). The
+    gradients go to the parameters' ``.grad`` (set anew). -> (loss,
+    real_scores, fake_scores), detached, scores NHWC in float32 (float64
+    for a float64 discriminator)."""
     discriminator.zero_grad(set_to_none=True)
     packed = batch_pack([aug_fake, aug_real]).permute(0, 3, 1, 2)
-    scores = discriminator(packed)
+    scores = ckpt(discriminator, packed)
     scores = scores.to(torch.promote_types(scores.dtype, torch.float32)).permute(0, 2, 3, 1)
     fake_scores, real_scores = batch_unpack(scores, 2)
     loss = lsgan_d_loss(real_scores, fake_scores)
@@ -181,7 +198,8 @@ def make_d_inputs(config: Config, models: Models):
     (NHWC, in the activation dtype) and the replay buffer after the push
     (its images tensor is ``state.buffer``'s, updated in place)."""
     check_training_options(config)
-    antialias = config["tpu"]["ada_antialias"]
+    aug_options = {"antialias": config["tpu"]["ada_antialias"],
+                   "supersample": config["tpu"]["ada_supersample"]}
     n_blocks = models.n_style_blocks
     device = models.device
     # ADA runs in the activation dtype: its output feeds only the
@@ -198,10 +216,8 @@ def make_d_inputs(config: Config, models: Models):
         fakes = state.generator(_nchw(d_shoeprints, device), apply_domain(s, 1.0))
         fakes = fakes.float().permute(0, 2, 3, 1)
         buffered, buffer = buffer_apply(state.buffer, fakes, draws.buffer)
-        aug_fake = augment(buffered.to(aug_dtype), p, draws.aug_fake, antialias=antialias)
-        aug_real = augment(
-            d_shoemarks.to(device, aug_dtype), p, draws.aug_real, antialias=antialias
-        )
+        aug_fake = augment(buffered.to(aug_dtype), p, draws.aug_fake, **aug_options)
+        aug_real = augment(d_shoemarks.to(device, aug_dtype), p, draws.aug_real, **aug_options)
         return aug_fake, aug_real, buffer
 
     return d_inputs
@@ -230,6 +246,7 @@ def make_d_phase(config: Config, models: Models):
     R1 steps), ``disc_real_acc``, ``disc_fake_acc`` and ``ada_p`` (the
     probability used)."""
     d_inputs = make_d_inputs(config, models)
+    ckpt_d = make_ckpt(_remat_modes(config)[1])
     r1_gamma = config["tpu"]["r1_gamma"]
     r1_interval = config["tpu"]["r1_interval"]
     ada_cfg = config["ada"]
@@ -246,7 +263,8 @@ def make_d_phase(config: Config, models: Models):
     ) -> tuple[TrainState, dict[str, torch.Tensor]]:
         p_used = state.ada.p
         aug_fake, aug_real, state.buffer = d_inputs(state, d_shoeprints, d_shoemarks, draws)
-        loss, real_scores, fake_scores = d_loss_and_grad(state.discriminator, aug_fake, aug_real)
+        loss, real_scores, fake_scores = d_loss_and_grad(
+            state.discriminator, aug_fake, aug_real, ckpt_d)
         if r1_gamma > 0 and state.step % r1_interval == 0:
             loss = loss + r1_loss_and_grad(state.discriminator, aug_real, r1_gamma)
         state.opt_d.step()
@@ -330,13 +348,15 @@ def make_g_loss(config: Config, models: Models):
     opt = config["optimisation"]
     scale = float(config["tpu"]["path_interval"])
     split = config["tpu"]["g_loss_split"]
-    antialias = config["tpu"]["ada_antialias"]
+    aug_options = {"antialias": config["tpu"]["ada_antialias"],
+                   "supersample": config["tpu"]["ada_supersample"]}
+    ckpt = make_ckpt(_remat_modes(config)[0])
     n_blocks = models.n_style_blocks
     device = models.device
 
     def encode(gen, prints, marks, draws):
         """-> (print latents, mark latents, KL) of the packed 2B encode."""
-        latents = gen.encode(batch_pack([prints, marks]))
+        latents = ckpt(gen.encode, batch_pack([prints, marks]))
         kl = kl_loss(latents)
         if draws.latent_noise is not None:
             latents = latents + draws.latent_noise.permute(0, 3, 1, 2)
@@ -348,10 +368,11 @@ def make_g_loss(config: Config, models: Models):
         gen, mapping, extractor = state.generator, state.mapping, state.extractor
         b = prints.shape[0]
         # styles are float32 (float64 in a float64 copy of the models)
-        mark_w = extractor(marks)
+        mark_w = ckpt(extractor, marks)
         w0 = torch.zeros((n_blocks, b, mark_w.shape[-1]), dtype=mark_w.dtype, device=device)
         w_t = mapping.style_vector(draws.style, n_blocks, mix_styles=True)
-        out3 = gen.decode(
+        out3 = ckpt(
+            gen.decode,
             batch_pack([print_latent, mark_latent, print_latent]),
             batch_pack([w0, mark_w[None].expand(n_blocks, -1, -1), w_t], dim=1),
         )
@@ -362,10 +383,10 @@ def make_g_loss(config: Config, models: Models):
 
         # GAN: the translations augmented at p_used, scored by the
         # discriminator as the D phase left it.
-        aug = augment(generated.permute(0, 2, 3, 1), p_used, draws.aug, antialias=antialias)
-        gan = lsgan_g_loss(state.discriminator(aug.permute(0, 3, 1, 2)).to(acc))
+        aug = augment(generated.permute(0, 2, 3, 1), p_used, draws.aug, **aug_options)
+        gan = lsgan_g_loss(ckpt(state.discriminator, aug.permute(0, 3, 1, 2)).to(acc))
         # Style cycle: the style extracted back from the translations.
-        style = style_cycle_loss(w_t[-1], extractor(generated))
+        style = style_cycle_loss(w_t[-1], ckpt(extractor, generated))
         total = (
             gan
             + opt["identity_loss_lambda"] * idt_loss
@@ -388,8 +409,9 @@ def make_g_loss(config: Config, models: Models):
         w_path = state.mapping.style_vector(draws.path_style, n_blocks, mix_styles=True)
         w1 = apply_domain(w_path, torch.clamp(theta + h / 2.0, 0.0, 1.0))
         w2 = apply_domain(w_path, torch.clamp(theta - h / 2.0, 0.0, 1.0))
-        feats = state.generator.extract(
-            batch_pack([print_latent, print_latent]), batch_pack([w1, w2], dim=1)
+        feats = ckpt(
+            state.generator.extract,
+            batch_pack([print_latent, print_latent]), batch_pack([w1, w2], dim=1),
         )
         legs = [batch_unpack(f, 2) for f in feats]
         return path_loss([f1 for f1, _ in legs], [f2 for _, f2 in legs], h)

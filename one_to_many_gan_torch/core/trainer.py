@@ -31,7 +31,13 @@ the end writes the image grids, the validation FID/KID and a checkpoint.
 - **Data**: a producer thread prepares ``tpu.prefetch`` groups ahead:
   the uint8 batches (flipped on the host) in pinned memory, copied to
   the device on a stream of their own, and normalised there to [-1, 1]
-  (``x.float() / 127.5 - 1.0``, the op order of ``normalize_u8``).
+  (``x.float() / 127.5 - 1.0``, the op order of ``normalize_u8``). With
+  ``tpu.native_loader`` the folders are decoded by the C++ loader and the
+  grids' float batches assembled by it (``data/native.py``), as in the
+  JAX package.
+- **TensorBoard** (``tpu.tensorboard``): every log line's means also go
+  to ``<run>/tensorboard`` as scalars (``utils/tensorboard.py``); the
+  ``tensorboard`` package is checked for when the Trainer is built.
 - **Stops**: ``run(max_steps)`` pauses early and then saves a model-only
   checkpoint (no grids, no FID) when it stops off the cadence; SIGTERM
   (handled on the main thread only) stops at the next group with that
@@ -41,9 +47,8 @@ the end writes the image grids, the validation FID/KID and a checkpoint.
   under ``torch.profiler``; the trace goes to ``<run>/trace/`` and the
   device's busy and idle share to ``Trainer.profile``.
 
-``tpu.compilation_cache_dir`` (a JAX compile cache) is ignored. The
-options the port cannot run yet are refused by name
-(``config.check_training_options``).
+``tpu.compilation_cache_dir`` (a JAX compile cache) is ignored. More
+than one device is refused by name (``config.check_training_options``).
 """
 
 from __future__ import annotations
@@ -76,6 +81,7 @@ from one_to_many_gan_torch.migrate import (
     from_reference_checkpoint,
     to_reference_checkpoint,
 )
+from one_to_many_gan_torch.utils import tensorboard
 
 # Checkpoint draws are seeded from (random_seed, CHECKPOINT_SEED_OFFSET + step).
 CHECKPOINT_SEED_OFFSET = 7_000_000
@@ -188,24 +194,27 @@ class Trainer:
         self.state = init_train_state(config, self.models, seed=seed)
         self.train_step = make_train_step(config, self.models)
 
+        if config["tpu"]["tensorboard"]:
+            tensorboard.require()
         image_size = tuple(config["data"]["image_size"])
         channels = config["data"]["image_channels"]
+        native = config["tpu"]["native_loader"]
         if shoeprint_images is None:
             shoeprint_images = ShoeDataset(
                 config["data"]["shoeprint_data_dir"], mode="train",
-                image_size=image_size, channels=channels,
+                image_size=image_size, channels=channels, native=native,
             ).images
         if shoemark_images is None:
             shoemark_images = ShoeDataset(
                 config["data"]["shoemark_data_dir"], mode="train",
-                image_size=image_size, channels=channels,
+                image_size=image_size, channels=channels, native=native,
             ).images
         self.shoemark_images = shoemark_images
         batch = config["training"]["batch_size"]
 
         def train_iter(images, offset, *, as_float=False):
             return BatchIterator(images, batch, shuffle=True, flip_prob=0.5,
-                                 seed=seed + offset, as_float=as_float)
+                                 seed=seed + offset, native=native, as_float=as_float)
 
         # The D and G sub-steps' streams (uint8: normalised on the device),
         # owned by the producer thread; the grids' streams of their own.
@@ -220,6 +229,7 @@ class Trainer:
         )
 
         self.logger = Logger(config["training"]["training_steps"])
+        self._tb: tensorboard.TensorBoardWriter | None = None  # made at the first log
         self._reals_cache: dict = {}
         self.timings: dict[str, float] = {}  # seconds of the latest checkpoint's parts
         self.profile: dict | None = None
@@ -350,6 +360,10 @@ class Trainer:
                     f.write(line + "\n")
                 with (path / "metrics.jsonl").open("a") as f:
                     f.write(json.dumps({"step": step, **means}) + "\n")
+                if config["tpu"]["tensorboard"]:
+                    if self._tb is None:
+                        self._tb = tensorboard.TensorBoardWriter(path / "tensorboard")
+                    self._tb.write(step, means)
                 if config["tpu"]["halt_on_nonfinite"] and not all(
                     np.isfinite(v) for v in means.values()
                 ):

@@ -6,10 +6,10 @@ decoded once at construction through ``_load_image`` (convert to L or
 RGB, PIL bilinear resize to ``image_size``) into one [N, H, W, C] uint8
 array. The normalisation to [-1, 1] and the per-sample flip happen per
 batch (``pipeline.py``), on the host for the flip and on the device for
-the normalisation (``core/trainer.py``).
-
-The C++ loader of the JAX package (``native=True``) is not ported:
-``ShoeDataset`` refuses it.
+the normalisation (``core/trainer.py``). ``native=True`` decodes through
+the C++ loader instead (``native.py``, the JAX package's ``runtime/``),
+byte for byte the JAX package's native path; it resizes differently from
+PIL, and raises where it cannot be built.
 """
 
 from __future__ import annotations
@@ -19,6 +19,8 @@ from typing import BinaryIO
 
 import numpy as np
 from PIL import Image
+
+from one_to_many_gan_torch.data.native import load_images
 
 
 def _load_image(
@@ -53,7 +55,7 @@ class ShoeDataset:
         mode: "train" | "test" | "val".
         image_size: (height, width) resize target.
         channels: 1 (grayscale) or 3.
-        native: the JAX package's C++ loader; not ported, refused.
+        native: decode with the C++ loader (``native.load_images``).
     """
 
     def __init__(
@@ -65,13 +67,13 @@ class ShoeDataset:
         channels: int,
         native: bool = False,
     ):
-        if native:
-            msg = "the native C++ image loader is not ported to PyTorch yet (see ROADMAP.md)"
-            raise NotImplementedError(msg)
         files = _image_files(path, mode)
-        self.images = np.stack(
-            [_load_image(f, image_size, channels) for f in files]
-        )  # [N, H, W, C] uint8
+        if native:
+            self.images = load_images(files, image_size, channels)
+        else:
+            self.images = np.stack(
+                [_load_image(f, image_size, channels) for f in files]
+            )  # [N, H, W, C] uint8
         self.files = files
 
     def __len__(self) -> int:

@@ -5,13 +5,17 @@ The JAX package's ``data/pipeline.py``, copied: epoch permutations from
 flip with probability ``flip_prob``, each host taking every
 ``host_count``-th image of an epoch, and ``skip(n)`` to fast-forward a
 resumed run. The same seed gives the same batches, byte for byte, as
-the JAX package's iterator. The C++ batch assembler (``native=True``) is
-not ported: the iterator refuses it.
+the JAX package's iterator. With ``native=True`` float batches come from
+the C++ assembler (``native.assemble_batch``), as in the JAX package,
+whose iterator quietly turns it off where the library is missing; this
+one raises.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from one_to_many_gan_torch.data import native as native_lib
 
 
 def normalize_u8(batch_u8: np.ndarray) -> np.ndarray:
@@ -29,7 +33,8 @@ class BatchIterator:
         flip_prob: per-sample horizontal flip probability.
         seed: RNG seed (deterministic stream).
         host_id/host_count: this process's shard of each epoch.
-        native: the JAX package's C++ assembler; not ported, refused.
+        native: float batches from the C++ assembler (uint8 batches take
+            the numpy gather either way).
         as_float: normalised float32 batches; False gives flipped uint8
             batches, which the trainer moves to the device (4x fewer
             bytes) and normalises there.
@@ -52,8 +57,8 @@ class BatchIterator:
             msg = f"expected [N,H,W,C], got {images.shape}"
             raise ValueError(msg)
         if native:
-            msg = "the native C++ batch assembler is not ported to PyTorch yet (see ROADMAP.md)"
-            raise NotImplementedError(msg)
+            native_lib.library()  # raises here where it cannot be built
+        self.native = native
         self.images = images
         self.batch_size = batch_size
         self.as_float = as_float
@@ -105,6 +110,8 @@ class BatchIterator:
             if self.flip_prob > 0
             else np.zeros(len(idx), dtype=bool)
         )
+        if self.native and self.as_float:
+            return native_lib.assemble_batch(self.images, idx, flips)
         batch = self.images[idx]  # gather, uint8
         if flips.any():
             batch = batch.copy()

@@ -16,6 +16,11 @@ every activation then takes the recorded side, its values stay its own,
 and the pin counts the inputs whose own side differed. Outside those
 blocks the activations are plain torch ops. ``fused_instance_norm(x,
 relu=True)`` routes its ReLU through here while a block is open.
+
+A pass that rematerialisation recomputes in the backward
+(``ops/remat.py``) calls every activation again; ``checkpoint_contexts``
+makes the recompute replay the sides its forward took, so the pattern
+neither grows nor runs past its pinned masks.
 """
 
 from __future__ import annotations
@@ -69,6 +74,46 @@ def pin(masks: Sequence[torch.Tensor]) -> contextlib.AbstractContextManager[Kink
 
 def kinks_open() -> bool:
     return _open is not None
+
+
+def _calls(pattern: KinkPattern) -> int:
+    """The activation calls ``pattern`` has seen so far."""
+    return len(pattern.flips) if pattern.pinned else len(pattern.masks)
+
+
+@contextlib.contextmanager
+def _noted(span: dict) -> Iterator[None]:
+    span["pattern"] = pattern = _open
+    span["start"] = _calls(pattern) if pattern is not None else 0
+    yield
+    span["end"] = _calls(pattern) if pattern is not None else 0
+
+
+@contextlib.contextmanager
+def _replayed(span: dict) -> Iterator[None]:
+    global _open
+    outer, pattern = _open, span["pattern"]
+    if pattern is None:
+        _open = None
+    elif pattern.pinned:
+        _open = KinkPattern(pattern.masks[span["start"] : span["end"]])
+    else:  # the same values take the same sides: record them again, aside
+        _open = KinkPattern()
+    try:
+        yield
+    finally:
+        _open = outer
+
+
+def checkpoint_contexts() -> tuple[contextlib.AbstractContextManager, contextlib.AbstractContextManager]:
+    """(forward, recompute) contexts for one checkpointed pass: the forward
+    notes which calls of the open pattern (if any) it made; the recompute
+    runs the same ops on a pattern of its own, which is dropped: the masks
+    of those calls pinned again if the forward pinned them, a recording if
+    it recorded (the recompute's values, and so its sides, are the
+    forward's), and no pattern if none was open."""
+    span: dict = {}
+    return _noted(span), _replayed(span)
 
 
 def _kinked(x: torch.Tensor, own: torch.Tensor, slope: float) -> torch.Tensor:

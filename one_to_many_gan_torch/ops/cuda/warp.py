@@ -118,6 +118,53 @@ def _row_chunk(b: int, h: int, w: int) -> int:
     return max(1, min(h, _PLAIN_BUDGET // (b * w * (max(h, w) + 2 * RADIUS))))
 
 
+def _dense_plain(images, sx, sy, width_x, width_y, antialias: bool) -> torch.Tensor:
+    """The dense tent contraction of ``warp_plain``, in chunks of output rows."""
+    b, h, w = images.shape
+    img = images.double()
+    chunk = _row_chunk(b, h, w)
+    out = []
+    for r0 in range(0, h, chunk):
+        wx = _tent(sx[:, r0 : r0 + chunk], w, width_x, antialias)
+        wy = _tent(sy[:, r0 : r0 + chunk], h, width_y, antialias)
+        g = torch.einsum("brxp,byp->brxy", wx.to(images.dtype).double(), img)
+        out.append((g * wy.double()).sum(dim=-1))
+    return torch.cat(out, dim=1).to(images.dtype)
+
+
+def _bilinear_taps(coords: torch.Tensor, n: int):
+    """The two taps ``floor(c)`` and ``floor(c) + 1`` of width-1 tents at
+    ``coords`` on an axis of ``n`` pixels: [(index, weight)], each weight
+    ``relu(1 - |c - i|)`` in float32 as ``_tent`` computes it, 0 outside
+    [0, n) (the index then clamped into it), NaN at a NaN coordinate."""
+    c = coords.float()
+    first = torch.floor(c).nan_to_num(0.0).clamp(-2.0, float(n))
+    taps = []
+    for i in (first, first + 1.0):
+        weight = torch.relu(1.0 - (c - i).abs())
+        weight = torch.where((i >= 0) & (i < n), weight, torch.zeros_like(weight))
+        taps.append((i.clamp(0, n - 1).long(), weight))
+    return taps
+
+
+def _bilinear_plain(images: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor) -> torch.Tensor:
+    """``warp_plain`` without antialiasing, by gathering each pixel's two
+    taps per axis: the dense contraction's every other term is an exact 0,
+    so the same float64 products and sums give the same bits."""
+    b, h, w = images.shape
+    flat = images.reshape(b, h * w)
+    out = None
+    for iy, wy in _bilinear_taps(sy, h):
+        g = None
+        for ix, wx in _bilinear_taps(sx, w):
+            px = torch.gather(flat, 1, (iy * w + ix).reshape(b, -1)).reshape(b, h, w)
+            term = wx.to(images.dtype).double() * px.double()
+            g = term if g is None else g + term
+        term = g * wy.double()
+        out = term if out is None else out + term
+    return out.to(images.dtype)
+
+
 def warp_plain(
     images: torch.Tensor,
     sx: torch.Tensor,
@@ -132,17 +179,12 @@ def warp_plain(
     kernel's (``wx`` rounded to the image dtype, ``wy`` float32); the sums
     run in float64 and round once to the image dtype, so the result does
     not depend on the order in which a GEMM sums, and the kernel's float32
-    sums differ from it by their own rounding alone."""
-    b, h, w = images.shape
-    img = images.double()
-    chunk = _row_chunk(b, h, w)
-    out = []
-    for r0 in range(0, h, chunk):
-        wx = _tent(sx[:, r0 : r0 + chunk], w, width_x, antialias)
-        wy = _tent(sy[:, r0 : r0 + chunk], h, width_y, antialias)
-        g = torch.einsum("brxp,byp->brxy", wx.to(images.dtype).double(), img)
-        out.append((g * wy.double()).sum(dim=-1))
-    return torch.cat(out, dim=1).to(images.dtype)
+    sums differ from it by their own rounding alone. Without antialiasing
+    the same terms are gathered (``_bilinear_plain``), which costs the
+    pixels' count rather than its square."""
+    if not antialias:
+        return _bilinear_plain(images, sx, sy)
+    return _dense_plain(images, sx, sy, width_x, width_y, antialias)
 
 
 def warp_bwd_plain(

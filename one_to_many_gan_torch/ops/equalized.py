@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from one_to_many_gan_torch.ops.pad import pad as pad_op
+from one_to_many_gan_torch.ops.remat import conv_out
 
 
 def he_constant(fan_in: int, dtype: torch.dtype) -> float:
@@ -94,9 +95,11 @@ class EqualizedConv(nn.Module):
         x = x.to(self.dtype)
         w = self.weight.to(self.dtype) * self.c
         if self.pad_mode == "zero":
-            y = F.conv2d(x, w, padding=self.padding)
+            padding = self.padding
         else:
-            y = F.conv2d(pad2d(x, self.padding, self.pad_mode), w)
+            x, padding = pad2d(x, self.padding, self.pad_mode), 0
+        with conv_out():  # the save point of tpu.remat = "conv"
+            y = F.conv2d(x, w, padding=padding)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)[:, None, None]
         return y

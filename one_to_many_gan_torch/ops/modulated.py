@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from one_to_many_gan_torch.ops.equalized import EqualizedLinear, he_constant, pad2d
+from one_to_many_gan_torch.ops.remat import conv_out
 
 
 class ModulatedConv(nn.Module):
@@ -54,9 +55,11 @@ class ModulatedConv(nn.Module):
         x = x.to(self.dtype) * s[:, :, None, None].to(self.dtype)
         w = self.weight.to(self.dtype) * self.c
         if self.pad_mode == "zero":
-            y = F.conv2d(x, w, padding=self.padding)
+            padding = self.padding
         else:
-            y = F.conv2d(pad2d(x, self.padding, self.pad_mode), w)
+            x, padding = pad2d(x, self.padding, self.pad_mode), 0
+        with conv_out():  # the save point of tpu.remat = "conv"
+            y = F.conv2d(x, w, padding=padding)
         wsq = (self.weight * self.c32).square().sum(dim=(2, 3))  # [out, in]
         d = torch.rsqrt(s.square() @ wsq.T + self.eps)  # [B, out], as s
         return y * d[:, :, None, None].to(self.dtype)

@@ -92,9 +92,8 @@ def tiny_config(
 def one_card_overrides(config: Config) -> dict[str, Any]:
     """The keys of ``config`` that one card cannot run, with the values of
     one data-parallel replica of it: ``data_parallel`` 1 (and
-    ``batch_size`` the replica's share of the global batch),
-    ``spatial_parallel`` 1, and ``native_loader`` false (the C++ loader is
-    not ported)."""
+    ``batch_size`` the replica's share of the global batch) and
+    ``spatial_parallel`` 1."""
     tpu = config["tpu"]
     out: dict[str, Any] = {}
     if tpu["data_parallel"] not in (1, -1):
@@ -102,8 +101,6 @@ def one_card_overrides(config: Config) -> dict[str, Any]:
         out["batch_size"] = config["training"]["batch_size"] // tpu["data_parallel"]
     if tpu["spatial_parallel"] > 1:
         out["spatial_parallel"] = 1
-    if tpu["native_loader"]:
-        out["native_loader"] = False
     return out
 
 

@@ -6,8 +6,9 @@
 The copy runs one data-parallel replica of the config on one card
 (``one_to_many_gan_torch.presets.one_card_overrides``: ``data_parallel``
 and ``spatial_parallel`` 1, ``batch_size`` the replica's share of the
-global batch, ``native_loader`` false); each ``key=value`` (a TOML value,
-e.g. ``shoeprint_data_dir='"/data/prints"'``) replaces another key's line.
+global batch); each ``key=value`` (a TOML value, e.g.
+``shoeprint_data_dir='"/data/prints"'``, or ``native_loader=false`` on a
+host without the libjpeg and libpng headers) replaces another key's line.
 Every key changed is printed with its old and new value. Then
 
     python -m one_to_many_gan_torch.train one_card.toml

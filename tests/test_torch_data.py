@@ -4,8 +4,8 @@ Both are numpy and PIL code, so the same seed and the same folder must
 give the same bytes: the synthetic images and the PNG files written from
 them, the datasets read from one folder, and every batch of the
 ``BatchIterator`` streams (shuffled and sequential, flips, host shards,
-uint8 and float, ``skip(n)`` against ``n`` batches taken), and the same
-errors.
+uint8 and float, the C++ assembler's, ``skip(n)`` against ``n`` batches
+taken), and the same errors.
 """
 
 import numpy as np
@@ -86,9 +86,9 @@ def test_dataset_errors_match_jax(tmp_path):
         with pytest.raises(ValueError, match="expected uint8"):
             mod.ArrayDataset(np.zeros((4, 4, 1), np.uint8))
     assert len(port_data.ArrayDataset(np.zeros((3, 4, 4, 1), np.uint8))) == 3
-    with pytest.raises(NotImplementedError, match="native"):
-        port_data.ShoeDataset(tmp_path, mode="train", image_size=(8, 8), channels=1,
-                              native=True)
+    for mod in (port_data, jax_data):  # the C++ loader finds the same files
+        with pytest.raises(FileNotFoundError, match="no images under"):
+            mod.ShoeDataset(tmp_path, mode="train", image_size=(8, 8), channels=1, native=True)
 
 
 # ------------------------------------------------------------- BatchIterator
@@ -104,6 +104,9 @@ STREAMS = {
                     "as_float": False},
     "host_1_of_2": {"batch_size": 2, "seed": 5, "host_id": 1, "host_count": 2,
                     "as_float": False},
+    # the C++ assembler (float batches) against the JAX package's
+    "native_float": {"batch_size": 3, "seed": 6, "native": True, "as_float": True},
+    "native_uint8": {"batch_size": 3, "seed": 6, "native": True, "as_float": False},
 }
 
 
@@ -145,8 +148,11 @@ def test_batch_iterator_errors_match_jax():
             mod.BatchIterator(IMAGES, 6, host_id=1, host_count=2)
         with pytest.raises(ValueError, match=r"expected \[N,H,W,C\]"):
             mod.BatchIterator(IMAGES[0], 2)
-    with pytest.raises(NotImplementedError, match="native"):
-        port_data.BatchIterator(IMAGES, 2, native=True)
+    # native=True now assembles float batches in C++, the JAX package's bytes
+    got, want = port_data.BatchIterator(IMAGES, 2, native=True), jax_data.BatchIterator(
+        IMAGES, 2, native=True)
+    assert got.native and want.native
+    np.testing.assert_array_equal(next(got), next(want))
 
 
 def test_normalize_u8_equals_jax():

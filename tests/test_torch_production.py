@@ -409,19 +409,20 @@ def test_one_card_copy_of_the_production_config(tmp_path):
     with pytest.raises(NotImplementedError, match="not ported"):
         check_training_options(source)
     assert one_card_overrides(source) == {"data_parallel": 1, "batch_size": 8,
-                                          "spatial_parallel": 1, "native_loader": False}
+                                          "spatial_parallel": 1}
     changes = write_one_card_config(src, tmp_path / "one.toml",
                                     shoeprint_data_dir=str(tmp_path / "prints"))
     config = load_config(tmp_path / "one.toml")
     check_training_options(config)
     assert list(changes) == ["data_parallel", "batch_size", "spatial_parallel",
-                             "native_loader", "shoeprint_data_dir"]
+                             "shoeprint_data_dir"]
+    assert config["tpu"]["native_loader"] is True
     tpu = config["tpu"]
     assert (tpu["ema_decay"], tpu["r1_gamma"], tpu["r1_interval"], tpu["split_phases"],
             tpu["path_interval"]) == (0.999, 10.0, 16, True, 8)
     assert config["training"]["batch_size"] == 8 and config["data"]["image_size"] == [512, 512]
     before = src.read_text().splitlines()
     after = (tmp_path / "one.toml").read_text().splitlines()
-    assert len(before) == len(after) and sum(a != b for a, b in zip(before, after)) == 5
+    assert len(before) == len(after) and sum(a != b for a, b in zip(before, after)) == 4
     with pytest.raises(ValueError, match="expected one line for 'remat_x'"):
         write_one_card_config(src, tmp_path / "bad.toml", remat_x=1)

@@ -8,7 +8,8 @@ built with the JAX Trainer's seed offsets; then a 4-step run (its log,
 same run paused twice and resumed (in groups of 2 steps, without the
 prefetch thread, keeping one checkpoint), whose final checkpoint must
 equal the uninterrupted run's bit for bit; SIGTERM, the halt on a
-non-finite metric, the refused ``[tpu]`` keys and the CLI's exit code.
+non-finite metric, every single-card ``[tpu]`` option training a step, the
+refused multi-device keys and the CLI's exit code.
 """
 
 import json
@@ -356,26 +357,41 @@ def test_halt_on_nonfinite_off_trains_through(tmp_path):
     assert trainer.run(max_steps=1).step == 1
 
 
-@pytest.mark.parametrize(("key", "value"), [
-    ("remat", '"conv"'), ("native_loader", "true"), ("tensorboard", "true"),
-    ("data_parallel", "2"), ("spatial_parallel", "2"), ("ada_supersample", "true"),
-])
+@pytest.mark.parametrize(("key", "value"), [("data_parallel", "2"), ("spatial_parallel", "2")])
 def test_refused_tpu_keys_raise_by_name(tmp_path, key, value):
+    """Only more than one device is refused."""
     with pytest.raises(NotImplementedError, match=rf"tpu\.{key} = .*not ported"):
         _trainer(_config(tmp_path, f"{key} = {value}"))
 
 
 @pytest.mark.parametrize(("key", "value"), [
     ("split_phases", "true"), ("r1_gamma", "10.0"), ("ema_decay", "0.999"),
-    ("g_loss_split", "true"),
+    ("g_loss_split", "true"), ("remat", '"conv"'), ("remat", '"full"'),
+    pytest.param("remat", '"conv"\nremat_d = "none"', id="remat-conv-remat_d-none"),
+    pytest.param("remat", '"full"\nremat_d = "none"', id="remat-full-remat_d-none"),
+    ("native_loader", "true"), ("tensorboard", "true"), ("ada_supersample", "true"),
 ])
 def test_ported_tpu_keys_train_a_step(tmp_path, key, value):
-    """The production config's options (R1 and the path term at step 0)."""
-    trainer = _trainer(_config(tmp_path, f"{key} = {value}\nr1_interval = 1", training_steps=1))
+    """Every single-card option trains (R1 and the path term at step 0, ADA
+    p 0.5 so that the warp transforms). ``native_loader`` decodes the
+    image folders with the C++ loader; ``tensorboard`` writes the logged
+    means as event files."""
+    config = _config(tmp_path, f"{key} = {value}\nr1_interval = 1", training_steps=1)
+    if key == "native_loader":
+        for domain, seed in (("shoeprints", 0), ("shoemarks", 1)):
+            write_synthetic_dataset_dirs(tmp_path / domain, n_train=8, n_test=2,
+                                         image_size=(32, 32), seed=seed)
+        trainer = Trainer(config, verbose=False, device="cpu")
+        assert trainer.shoeprint_iter.native and trainer.grid_print_iter.native
+    else:
+        trainer = _trainer(config)
+    trainer.state.ada = trainer.state.ada._replace(p=torch.tensor(0.5))
     assert trainer.run().step == 1
     means = [json.loads(ln) for ln in (_run_dir(trainer.config) / "metrics.jsonl").open()]
     assert all(np.isfinite(v) for r in means for k, v in r.items() if k != "fid_extractor")
     assert (trainer.state.ema_generator is not None) == (key == "ema_decay")
+    events = list((_run_dir(trainer.config) / "tensorboard").glob("events.out.tfevents.*"))
+    assert bool(events) == (key == "tensorboard")
 
 
 def test_steps_per_call_is_clamped_with_a_warning(tmp_path):
