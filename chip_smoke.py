@@ -94,7 +94,7 @@ started together), then runs, in order:
    bitwise equal;
 15. the production config, ``configs/tpu_v5e8_512.toml`` (512x512, EMA,
    lazy R1, split phases), as one data-parallel replica on one card
-   (``presets.write_one_card_config``; each override printed), its
+   (``presets.write_card_config``; each override printed), its
    schedule cut to 32 steps: (a) 18 bare steps on synthetic batches
    without deterministic kernels, each phase timed and its peak memory
    read, the launches of each phase exact (D: 2 warps and 13 instance
@@ -128,7 +128,17 @@ started together), then runs, in order:
    headers), its decode of the 512x512 folders and ``assemble_batch``
    byte-equal to the PIL and numpy paths and a Trainer with
    ``native_loader = true``; else it says why, and phases 15 and 16 run
-   with ``native_loader = false``.
+   with ``native_loader = false``;
+17. the data-parallel step (``parallel.DataParallel``) with a world of one
+   card over NCCL, at phase 11's config in float32 (TF32 off,
+   deterministic kernels), 3 steps, each from the state of the same steps
+   without a group: every metric, gradient and parameter against them
+   (the step tolerance; the parameters wherever Adam must move them
+   alike), the launches of
+   each step phase 11's (3 warp forwards, 1 warp backward, 30 instance
+   norms), the collectives' device time in one step's profile, and the
+   all-reduce of each optimiser's gradient buffer timed with its bytes.
+   Four cards: ``scripts/multi_card_smoke.py``.
 
 Any failed check raises, and the script exits non-zero. Before its last
 line it prints one JSON line ``{"kernels": [...]}``; its last line is
@@ -183,7 +193,6 @@ IN_SHAPES = sorted({site[:3] for site in ENCODE_SITES})
 IN_REPLACES = "ops/pallas/instance_norm.py:72"
 WARP_REPLACES = "ops/pallas/warp.py:177"
 WARP_BWD_REPLACES = "ops/pallas/warp.py:209"
-KERNEL_SOURCES = ("instance_norm", "warp")  # csrc/<name>.cu
 # The warp's plain version in float32: the JAX package's warp tolerance
 # (tests/test_pallas_kernels.py). bfloat16: one bf16 ulp of the output plus
 # 2^-19 of the largest |image| value, under the JAX package's 0.05. Both
@@ -302,11 +311,16 @@ T_STEPS, T_LOG, T_CKPT, T_GROUP, T_PROFILE_STEP = 32, 8, 16, 8, 24
 T_TRAIN_IMAGES, T_TEST_IMAGES = 64, 16
 T_EVAL_IMAGES, T_EVAL_BATCH = 64, 32
 T_ENGINE_N = 8
+# Phase 17: the data-parallel step with a world of one card, at phase 11's
+# config in float32 (a whole-step tolerance exists for it), 3 steps beside
+# the same steps without a group, each from the same state.
+DP_STEPS = 3
+STEP_RTOL, STEP_ATOL = 2e-4, 2e-5  # the JAX package's step tolerance
 # Phase 15: the production config, configs/tpu_v5e8_512.toml (512x512,
 # 1 channel, min_latent 64: 3 downsamples, channels 64 -> 512, 7 resnet
 # and 7 style blocks, w_dim 6, bf16, path interval 8, EMA 0.999, R1
 # gamma 10 every 16 steps, split phases), as one data-parallel replica on
-# one card (presets.write_one_card_config: data_parallel 4 -> 1,
+# one card (presets.write_card_config: data_parallel 4 -> 1,
 # spatial_parallel 2 -> 1, batch 32 -> 8, native_loader -> false), on
 # image folders of 64 train and 16 test images a domain, with its schedule
 # cut to 32 steps (logs every 8, checkpoints every 16 with 64 validation
@@ -392,11 +406,8 @@ def phase_environment(torch, build) -> dict:
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}  device {torch.cuda.get_device_name(0)}  "
         f"count {torch.cuda.device_count()}")
-    from concurrent.futures import ThreadPoolExecutor
-
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-        infos = dict(zip(KERNEL_SOURCES, pool.map(build.build, KERNEL_SOURCES), strict=True))
+    infos = build.build_kernels()  # one nvcc per csrc/<name>.cu, all started together
     seconds = time.perf_counter() - t0
     for name, info in infos.items():
         log(f"built {name}.cu in {info['seconds']:.2f} s")
@@ -732,7 +743,7 @@ def phase_card_vs_cpu(torch, config, engine, source: np.ndarray) -> tuple[dict, 
     err = float(np.abs(card - cpu).max())
     log(f"card vs CPU (B=1, n=2, float32, TF32 off): max_abs_err {err:.3g} "
         f"(tol {CARD_VS_CPU_TOL}); CPU pass {cpu_s:.1f} s")
-    check(np.isfinite(card).all() and card.shape == (1, 2, *config["data"]["image_size"], 1),
+    check(np.isfinite(card).all() and card.shape == (2, *config["data"]["image_size"], 1),
           f"card output {card.shape}")
     check(err <= CARD_VS_CPU_TOL, f"card disagrees with the CPU: {err}")
     log("phase 4 ok")
@@ -2150,11 +2161,11 @@ def _determinism_restored(torch):
 
 def production_config(root: Path, run: str, **values):
     """Phase 15's config: ``configs/tpu_v5e8_512.toml`` as one card's copy
-    (``presets.write_one_card_config``), on the folders under ``root``, run
+    (``presets.write_card_config``), on the folders under ``root``, run
     ``run``, with phase 15's schedule and ``values`` (other keys of the
     file). -> (config, the keys changed with their new values)."""
     from one_to_many_gan_torch.config import load_config
-    from one_to_many_gan_torch.presets import write_one_card_config
+    from one_to_many_gan_torch.presets import write_card_config
 
     path = root / f"{run}.toml"
     schedule = {"shoeprint_data_dir": str(root / "prints"),
@@ -2162,7 +2173,7 @@ def production_config(root: Path, run: str, **values):
                 "training_run": run, "training_steps": P_STEPS, "log_interval": P_LOG,
                 "checkpoint_interval": P_CKPT, "n_evaluation_images": P_EVAL_IMAGES}
     native = {} if _native_reason() is None else {"native_loader": False}
-    changes = write_one_card_config(PROD_CONFIG, path, **{**native, **schedule, **values})
+    changes = write_card_config(PROD_CONFIG, path, **{**native, **schedule, **values})
     return load_config(path), changes
 
 
@@ -3045,6 +3056,172 @@ def phase_slice7(torch, production: dict) -> dict:
 # ------------------------------------------------------------------- main
 
 
+# ---------------------------------------------------------------- phase 17
+
+
+def held_mask(grad, want_grad, lr: float, first: bool):
+    """Where Adam must move a parameter alike from two gradients that differ
+    by float reassociation: its first step is ``lr * g / (|g| + eps)``,
+    alike where |g| exceeds twice the two gradients' largest disagreement
+    (the signs agree) and eps does not magnify that past half the atol; a
+    later step scales with g, alike where the disagreement is under 1 % of
+    |g|. Elsewhere (a gradient of rounding noise: the bias of a conv an
+    instance norm follows) the two moves may differ by up to 2 lr."""
+    err = (grad - want_grad).abs().max()
+    if first:
+        low = want_grad.abs() - err
+        return (low > err) & (lr * 1e-8 * err / (low + 1e-8) ** 2 < STEP_ATOL / 2)
+    return want_grad.abs() > 100 * err
+
+
+def _named_params(state) -> dict:
+    nets = {"g": state.generator, "m": state.mapping, "d": state.discriminator,
+            "s": state.extractor}
+    return {f"{k}.{n}": p for k, m in nets.items() for n, p in m.named_parameters()}
+
+
+def compare_steps(torch, got: dict, want: dict, lr: float, first: bool, label: str, *,
+                  grad_rtol: float = STEP_RTOL, min_held: float = 0.9) -> dict:
+    """Metrics within the step tolerance; gradients per leaf within
+    ``grad_rtol`` of the leaf's largest entry; parameters within the step
+    tolerance wherever Adam must move them alike (``held_mask``), which
+    must be at least ``min_held`` of them. ``got`` / ``want``: {"metrics",
+    "grads", "params"} (tensors on any device). -> the largest errors."""
+    out = {"metric_rel": 0.0, "grad_rel": 0.0, "param_err_held": 0.0, "param_err": 0.0,
+           "held_share": 0.0}
+    for name, w in want["metrics"].items():
+        g = got["metrics"][name]
+        check(abs(g - w) <= STEP_ATOL + STEP_RTOL * abs(w), f"{label}: {name} {g} against {w}")
+        out["metric_rel"] = max(out["metric_rel"], abs(g - w) / max(abs(w), 1e-12))
+    held = total = 0
+    for name, w in want["grads"].items():
+        g = got["grads"][name].double().cpu()
+        w = w.double().cpu()
+        scale = w.abs().max().item()
+        pg, pw = got["params"][name].double().cpu(), want["params"][name].double().cpu()
+        diff = (pg - pw).abs()
+        out["param_err"] = max(out["param_err"], diff.max().item())
+        total += w.numel()
+        if scale < 1e-5:  # rounding noise: the bias of a conv an instance norm follows
+            continue
+        rel = (g - w).abs().max().item() / scale
+        check(rel <= grad_rtol, f"{label}: gradient {name} {rel:.3g} of its largest entry")
+        out["grad_rel"] = max(out["grad_rel"], rel)
+        same = held_mask(g, w, lr / 100 if name.startswith("m.") else lr, first)
+        held += int(same.sum())
+        if same.any():
+            bad = diff[same] > STEP_ATOL + STEP_RTOL * pw.abs()[same]
+            check(not bad.any().item(), f"{label}: parameter {name} off where held")
+            out["param_err_held"] = max(out["param_err_held"], diff[same].max().item())
+    out["held_share"] = held / total
+    check(out["held_share"] >= min_held,
+          f"{label}: only {out['held_share']:.3f} of the parameters held")
+    return out
+
+
+def _snapshot_step(torch, state, metrics: dict, steps: int) -> dict:
+    params = _named_params(state)
+    return {"metrics": {k: v.item() for k, v in metrics.items()},
+            "grads": {k: p.grad.detach().cpu().clone() for k, p in params.items()},
+            "params": {k: p.detach().cpu().clone() for k, p in params.items()},
+            "steps": steps}
+
+
+def phase_data_parallel(torch) -> dict:
+    """17. The data-parallel step with a world of one card over NCCL
+    against the step without a group, each step from the same state (the
+    no-group run's, through its checkpoint dict), on the same batches and
+    draws; its launches; the collectives' device time."""
+    import torch.distributed as dist
+
+    from one_to_many_gan_torch import train
+    from one_to_many_gan_torch.core.train_step import (
+        Batches,
+        draw_step,
+        make_train_step,
+        synthetic_batch,
+    )
+    from one_to_many_gan_torch.device import use_deterministic_kernels
+    from one_to_many_gan_torch.migrate import from_reference_checkpoint, to_reference_checkpoint
+    from one_to_many_gan_torch.ops.cuda import fused_instance_norm, warp, warp_bwd
+    from one_to_many_gan_torch.parallel import distributed, replicate
+
+    config = d_phase_config("float32", D_BATCH, path_interval=G_INTERVAL)
+    lr = config["optimisation"]["learning_rate"]
+    counters = (warp, warp_bwd, fused_instance_norm)
+    group = distributed.ensure_initialized(
+        "cuda", rank=0, world_size=1,
+        init_method=f"tcp://127.0.0.1:{distributed._free_port()}")
+    try:
+        with _determinism_restored(torch):
+            use_deterministic_kernels()
+            models, state, gen = train.setup(config, seed=0, ada_p=D_ADA_P, device="cuda")
+            step_fn = make_train_step(config, models)
+            g_models, g_state, _ = train.setup(config, seed=1, ada_p=D_ADA_P, device="cuda")
+            replicate(group, g_state)
+            g_step_fn = make_train_step(config, g_models, group)
+            refs = []  # the no-group steps: each one's state before it, inputs, result
+            for _ in range(DP_STEPS):
+                start = to_reference_checkpoint(state)
+                batches = Batches(*(synthetic_batch(gen, D_BATCH, (D_SIZE, D_SIZE), 1)
+                                    for _ in range(4)))
+                draws = draw_step(gen, config, models)
+                state, metrics = step_fn(state, batches, draws)
+                refs.append((start, batches, draws, _snapshot_step(torch, state, metrics, 1)))
+            for c in counters:  # the main path of this phase: the group's steps
+                c.launches = 0
+            errs, launches, step_ms = [], [], []
+            for k, (start, batches, draws, want) in enumerate(refs):
+                g_state = from_reference_checkpoint(start, g_state, step=k)
+                c0 = [c.launches for c in counters]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                g_state, g_metrics = g_step_fn(g_state, batches, draws)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                launches.append(_phase_counts(counters, c0))
+                errs.append(compare_steps(torch, _snapshot_step(torch, g_state, g_metrics, 1),
+                                          want, lr, first=k == 0,
+                                          label=f"group of one against no group, step {k}"))
+            total = dict(zip(("warp_fwd", "warp_bwd", "instance_norm"),
+                             (c.launches for c in counters), strict=True))
+            del refs
+            prof = profile_call(torch, lambda: train.run_step(config, g_models, g_state,
+                                                              g_step_fn, gen, group),
+                                "one fused step in a group of one (float32)",
+                                select=lambda n: "nccl" in n.lower())
+            flats = {k: torch.zeros(sum(p.numel() for p in mod.parameters()), device="cuda")
+                     for k, mod in (("d", g_state.discriminator), ("g", g_state.generator),
+                                    ("m", g_state.mapping), ("s", g_state.extractor))}
+            allreduce = {k: {"bytes": f.numel() * 4,
+                             "ms": _cuda_ms(torch, lambda f=f: dist.all_reduce(f), 20)}
+                         for k, f in flats.items()}
+            del models, state, step_fn, g_models, g_state, g_step_fn, flats
+            torch.cuda.empty_cache()
+        want = [G_WARPS_PER_STEP, G_WARP_BWDS_PER_STEP, G_IN_PER_STEP]
+        check(all(c == want for c in launches), f"group steps launched {launches} (want {want})")
+    finally:
+        group.close()
+        dist.destroy_process_group()
+    nccl_ms = sum(k["ms"] for k in prof["selected"])
+    worst = {key: max(e[key] for e in errs) for key in errs[0]}
+    worst["held_share"] = min(e["held_share"] for e in errs)
+    log(f"data-parallel step, world 1 over NCCL ({D_SIZE}x{D_SIZE}, batch {D_BATCH}, float32, "
+        f"{DP_STEPS} steps, each from the no-group run's state): metrics "
+        f"{worst['metric_rel']:.3g} relative, gradients {worst['grad_rel']:.3g} of each leaf's "
+        f"largest entry, parameters {worst['param_err_held']:.3g} where held "
+        f"({worst['held_share']:.4f} of them), {worst['param_err']:.3g} anywhere; step ms "
+        f"{[round(t, 2) for t in step_ms]}")
+    log(f"  launches {total}; NCCL kernels in one step's profile {nccl_ms:.4f} ms "
+        f"({len(prof['selected'])} names) of {prof['busy_ms']:.2f} ms busy; all-reduce of each "
+        "optimiser's gradient buffer, one card: " + ", ".join(
+            f"{k} {v['bytes'] / 2**20:.2f} MiB {v['ms']:.4f} ms" for k, v in allreduce.items()))
+    log("phase 17 ok")
+    return {"launches": total, "per_step": launches, "errors": errs, "step_ms": step_ms,
+            "nccl_ms": nccl_ms, "nccl_kernels": prof["selected"], "profile_busy_ms":
+            prof["busy_ms"], "idle_share": prof["idle_share"], "allreduce": allreduce}
+
+
 def main() -> int:
     import torch
 
@@ -3089,6 +3266,8 @@ def main() -> int:
     report["production"] = phase_production(torch)
     torch.cuda.empty_cache()
     report["slice7"] = phase_slice7(torch, report["production"])
+    torch.cuda.empty_cache()
+    report["data_parallel"] = phase_data_parallel(torch)
 
     fused = report["fused_step"]["launches"]
     enc = report["kernels"]["per_encode"]["float32_b1"]
@@ -3098,7 +3277,8 @@ def main() -> int:
     slice7 = report["slice7"]
     # phase 16's main paths, each counted from 0 around its run
     s7 = {"supersampled steps (phase 16c)": slice7["ss_steps"]["launches"],
-          "remat steps (phase 16d)": slice7["remat"]["launches"]}
+          "remat steps (phase 16d)": slice7["remat"]["launches"],
+          "data-parallel steps, world 1 (phase 17)": report["data_parallel"]["launches"]}
     if slice7["native"]["built"]:
         s7["native-loader Trainer (phase 16e)"] = slice7["native"]["launches"]
     in_by_phase = {"serve (phase 3)": report["serve"]["launches"],

@@ -6,9 +6,10 @@ defaults are filled in below. Of ``[tpu]`` the port reads ``precision``
 ("float32" or "bfloat16" activations) and, for training,
 ``ada_antialias``, ``ada_supersample``, ``path_interval``, ``ema_decay``,
 ``r1_gamma``, ``r1_interval``, ``remat``, ``remat_d``, ``split_phases``,
-``g_loss_split``, ``native_loader`` and ``tensorboard``;
-``check_training_options`` refuses more than one device, which the port
-does not run yet. ``ada_pallas`` chooses between two TPU
+``g_loss_split``, ``native_loader``, ``tensorboard`` and
+``data_parallel`` (``resolve_data_parallel``: N ranks, one card each);
+``check_training_options`` refuses ``spatial_parallel > 1``, which the
+port does not run yet. ``ada_pallas`` chooses between two TPU
 implementations of the ADA warp; the port always computes the Pallas
 kernel's numerics, so it ignores the key; ``compilation_cache_dir`` is a
 JAX compile cache, also ignored. The other keys are validated so that
@@ -19,6 +20,7 @@ from __future__ import annotations
 
 import math
 import tomllib
+import warnings
 from pathlib import Path
 from typing import Any
 
@@ -124,21 +126,44 @@ def n_downsamples(config: Config) -> int:
 
 def check_training_options(config: Config) -> None:
     """Raise ``NotImplementedError``, naming the key, for a training option
-    the port does not run yet: more than one device (``data_parallel``
-    other than 1 or -1, ``spatial_parallel > 1``; -1, all devices, is the
-    one card the port trains on). Every other training option runs:
-    ``core/train_step.py``, ``core/trainer.py``, ``data/`` and ``Models``
-    take them."""
+    the port does not run yet: ``spatial_parallel > 1``; ``ValueError`` for
+    a ``data_parallel`` that is neither -1 nor at least 1. Every other
+    training option runs: ``core/train_step.py``, ``core/trainer.py``,
+    ``data/``, ``parallel/`` and ``Models`` take them."""
     tpu = config["tpu"]
-    refused = []
-    if tpu["data_parallel"] not in (1, -1):
-        refused.append(("data_parallel", 1))
+    dp = tpu["data_parallel"]
+    if not isinstance(dp, int) or (dp != -1 and dp < 1):
+        msg = f"tpu.data_parallel must be -1 (all visible cards) or >= 1, got {dp!r}"
+        raise ValueError(msg)
     if tpu["spatial_parallel"] > 1:
-        refused.append(("spatial_parallel", 1))
-    if refused:
-        key, off = refused[0]
         msg = (
-            f"tpu.{key} = {tpu[key]!r} is not ported to PyTorch yet "
-            f"(see ROADMAP.md); set it to {off!r}"
+            f"tpu.spatial_parallel = {tpu['spatial_parallel']!r} is not ported to PyTorch "
+            "yet (see ROADMAP.md); set it to 1"
         )
         raise NotImplementedError(msg)
+
+
+def resolve_data_parallel(config: Config, n_devices: int) -> int:
+    """The number of data-parallel ranks ``config`` asks for on a host with
+    ``n_devices`` cards (the JAX package's Trainer and ``make_mesh``):
+    -1 takes every card; a value that does not divide ``batch_size`` is
+    clamped to the largest one that does, with a warning; more ranks than
+    cards raise ``ValueError`` (never fewer cards than asked for)."""
+    check_training_options(config)
+    dp = config["tpu"]["data_parallel"]
+    batch_size = config["training"]["batch_size"]
+    if dp == -1:
+        dp = n_devices
+    dp_req = dp
+    while dp > 1 and batch_size % dp != 0:
+        dp -= 1
+    if dp != dp_req:
+        warnings.warn(
+            f"tpu.data_parallel={dp_req} does not divide batch_size={batch_size}; "
+            f"clamped to {dp}",
+            stacklevel=2,
+        )
+    if dp > n_devices:
+        msg = f"tpu.data_parallel={dp} needs {dp} devices, have {n_devices}"
+        raise ValueError(msg)
+    return dp

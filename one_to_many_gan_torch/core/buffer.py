@@ -12,6 +12,12 @@ The loop runs on the device with index tensors (``index_select`` and
 ``index_copy_``: no host round trip). It updates ``state.images`` in
 place, which saves a copy of the buffer per image; the returned state
 holds the same tensor.
+
+Under data parallelism (a ``parallel.DataParallel`` group) every rank
+all-gathers the fakes once, runs the same sequential loop over the global
+batch with the global draws, and keeps its own rows of the output, so
+the buffer state stays identical on every rank (the JAX package gathers
+the fakes once and reslices the output, its ``core/buffer.py``).
 """
 
 from __future__ import annotations
@@ -51,10 +57,14 @@ def draw_buffer(generator: torch.Generator, b: int, size: int, device) -> Buffer
 
 
 def buffer_apply(
-    state: BufferState, fakes: torch.Tensor, draws: BufferDraws
+    state: BufferState, fakes: torch.Tensor, draws: BufferDraws, group=None
 ) -> tuple[torch.Tensor, BufferState]:
     """Push a batch of fakes [B, H, W, C] (no gradient); -> (the batch to
-    train D on, the updated buffer)."""
+    train D on, the updated buffer). With ``group``, ``fakes`` are this
+    rank's rows, ``draws`` the global batch's, and the output this rank's
+    rows."""
+    if group is not None:
+        fakes = group.all_gather_rows(fakes)
     size = state.images.shape[0]
     images, count = state.images, state.count
     out = torch.empty_like(fakes)
@@ -68,4 +78,6 @@ def buffer_apply(
         write_idx = torch.where(not_full, count.long(), slot)
         images.index_copy_(0, write_idx.view(1), torch.where(not_full | use_swap, img, old)[None])
         count = torch.where(not_full, count + 1, count)
+    if group is not None:
+        out = group.shard(out)
     return out, BufferState(images=images, count=count)

@@ -93,9 +93,13 @@ def make_inference_fns(models: Models):
         return _nhwc(decode_in_chunks(gen, latent_n, _styles(z, theta), limit))
 
     @torch.inference_mode()
-    def many_to_many(images: torch.Tensor, z: torch.Tensor, thetas: torch.Tensor):
+    def many_to_many(images: torch.Tensor, z: torch.Tensor, thetas: torch.Tensor,
+                     rows: slice = slice(None)):
         """The cross-request serving batch: [B,H,W,C] sources, draws
-        z [B, n, w_dim] and [B] thetas -> [B, n, H, W, C].
+        z [B, n, w_dim] and [B] thetas -> [B*n, H, W, C], request ``i``'s
+        n images at rows ``i*n`` .. ``(i+1)*n - 1``; ``rows`` (a slice of
+        that flattened style batch) decodes only those rows, one
+        data-parallel replica's part.
 
         One encode at B and one decode at B*n (in chunks where B*n exceeds
         ``decode_batch_limit``). Request ``i``'s output depends only on
@@ -103,10 +107,9 @@ def make_inference_fns(models: Models):
         """
         b, n = z.shape[0], z.shape[1]
         latents = gen.encode(_nchw(images.to(device)))
-        latent_bn = latents.repeat_interleave(n, dim=0)
+        latent_bn = latents.repeat_interleave(n, dim=0)[rows]
         thetas = torch.as_tensor(thetas, dtype=torch.float32, device=device)
-        w = _styles(z.reshape(b * n, -1), thetas.repeat_interleave(n))
-        out = _nhwc(decode_in_chunks(gen, latent_bn, w, limit))
-        return out.reshape(b, n, *out.shape[1:])
+        w = _styles(z.reshape(b * n, -1)[rows], thetas.repeat_interleave(n)[rows])
+        return _nhwc(decode_in_chunks(gen, latent_bn, w, limit))
 
     return translate, one_to_many, many_to_many

@@ -64,6 +64,22 @@ a ``torch.Generator``). Batches are NHWC in [-1, 1], as in the JAX
 package. The metrics keep the JAX names and stay on the device (0-d
 tensors): reading them is the caller's sync.
 
+**Data parallelism.** Each ``make_*`` takes an optional ``group``
+(``parallel.DataParallel``); without one the step is one process's. With
+one, the same program runs in every rank: the batches are this rank's
+rows of the global batch, the draws the global batch's (``train_step``
+slices them: ``shard_draws``; the buffer's stay global), and the step
+computes what one process computes at the global batch, up to float
+reassociation: the replay buffer all-gathers the fakes
+(``core/buffer.py``), the KL term's moments are the global batch's
+(``losses.kl_loss``), each phase's gradients are averaged over the ranks
+before its Adam (one flat buffer per optimiser:
+``DataParallel.reduce_gradients``; once per phase, after both of
+``g_loss_split``'s sub-backwards), and the logged metrics are global
+means; so ADA's controller sees the global real-sign mean and ``p``, the
+parameters and the buffer stay identical on every rank.
+``make_ada_update`` keeps the config's global ``batch_size``.
+
 ``tpu.ada_supersample`` takes the 2x supersampled warp in all three
 augment calls (the D phase's fakes and reals, the G phase's
 translations). ``tpu.remat`` ("none", "conv", "full"; ``ops/remat.py``)
@@ -82,7 +98,14 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from one_to_many_gan_torch.augment import AugmentDraws, augment, draw_augment, make_ada_update
+from one_to_many_gan_torch.augment import (
+    AugmentDraws,
+    ColorDraws,
+    GeometricDraws,
+    augment,
+    draw_augment,
+    make_ada_update,
+)
 from one_to_many_gan_torch.config import Config, check_training_options
 from one_to_many_gan_torch.core.buffer import (
     BufferDraws,
@@ -191,7 +214,7 @@ def d_loss_and_grad(
     return loss.detach(), real_scores.detach(), fake_scores.detach()
 
 
-def make_d_inputs(config: Config, models: Models):
+def make_d_inputs(config: Config, models: Models, group=None):
     """-> ``d_inputs(state, d_shoeprints, d_shoemarks, draws)``: steps 1-3
     of the D phase, without gradient, at the ADA probability ``state.ada.p``
     -> (aug_fake, aug_real, buffer): the discriminator's augmented inputs
@@ -215,7 +238,7 @@ def make_d_inputs(config: Config, models: Models):
         s = state.mapping.style_vector(draws.style, n_blocks, mix_styles=True)
         fakes = state.generator(_nchw(d_shoeprints, device), apply_domain(s, 1.0))
         fakes = fakes.float().permute(0, 2, 3, 1)
-        buffered, buffer = buffer_apply(state.buffer, fakes, draws.buffer)
+        buffered, buffer = buffer_apply(state.buffer, fakes, draws.buffer, group)
         aug_fake = augment(buffered.to(aug_dtype), p, draws.aug_fake, **aug_options)
         aug_real = augment(d_shoemarks.to(device, aug_dtype), p, draws.aug_real, **aug_options)
         return aug_fake, aug_real, buffer
@@ -239,13 +262,14 @@ def r1_loss_and_grad(discriminator, aug_real: torch.Tensor, gamma: float) -> tor
     return loss.detach()
 
 
-def make_d_phase(config: Config, models: Models):
+def make_d_phase(config: Config, models: Models, group=None):
     """-> ``d_phase(state, d_shoeprints, d_shoemarks, draws)``: one
     discriminator update on ``models.device``; ``state`` is updated in
     place and returned with the metrics ``disc_loss`` (with the R1 term on
     R1 steps), ``disc_real_acc``, ``disc_fake_acc`` and ``ada_p`` (the
-    probability used)."""
-    d_inputs = make_d_inputs(config, models)
+    probability used). With ``group``: this rank's rows and the global
+    draws of the phase (``shard_draws``' D part)."""
+    d_inputs = make_d_inputs(config, models, group)
     ckpt_d = make_ckpt(_remat_modes(config)[1])
     r1_gamma = config["tpu"]["r1_gamma"]
     r1_interval = config["tpu"]["r1_interval"]
@@ -267,9 +291,12 @@ def make_d_phase(config: Config, models: Models):
             state.discriminator, aug_fake, aug_real, ckpt_d)
         if r1_gamma > 0 and state.step % r1_interval == 0:
             loss = loss + r1_loss_and_grad(state.discriminator, aug_real, r1_gamma)
-        state.opt_d.step()
         sign_real = discriminator_confidence(real_scores)
         sign_fake = -discriminator_confidence(fake_scores)
+        if group is not None:
+            loss, sign_real, sign_fake = group.reduce_gradients(
+                [list(state.discriminator.parameters())], [loss, sign_real, sign_fake])
+        state.opt_d.step()
         state.ada = ada_update(state.ada, sign_real)
         return state, {
             "disc_loss": loss,
@@ -336,14 +363,16 @@ def _frozen(module: nn.Module):
             p.requires_grad_(flag)
 
 
-def make_g_loss(config: Config, models: Models):
+def make_g_loss(config: Config, models: Models, group=None):
     """-> ``g_loss_and_grad(state, batches, draws, p_used, path_step)``:
     steps 1-5 of the G phase (with the path term when ``path_step``) ->
     its metrics; the gradients go to the generator's, mapping network's
     and extractor's ``.grad`` (set anew), and to nothing else. With
     ``tpu.g_loss_split`` the gradients are the sum of two sub-backwards
     (the main terms, then the path term on a fresh encode), equal to the
-    joint backward's up to float reassociation."""
+    joint backward's up to float reassociation. With ``group``: this rank's
+    rows and draws, the KL term's moments global, the gradients and metrics
+    this rank's (``make_g_phase`` reduces them)."""
     check_training_options(config)
     opt = config["optimisation"]
     scale = float(config["tpu"]["path_interval"])
@@ -357,7 +386,7 @@ def make_g_loss(config: Config, models: Models):
     def encode(gen, prints, marks, draws):
         """-> (print latents, mark latents, KL) of the packed 2B encode."""
         latents = ckpt(gen.encode, batch_pack([prints, marks]))
-        kl = kl_loss(latents)
+        kl = kl_loss(latents, group)
         if draws.latent_noise is not None:
             latents = latents + draws.latent_noise.permute(0, 3, 1, 2)
         print_latent, mark_latent = batch_unpack(latents, 2)
@@ -460,14 +489,16 @@ def ema_update(ema: nn.Module, module: nn.Module, decay: float) -> None:
     torch._foreach_add_(e, torch._foreach_mul(list(module.parameters()), 1.0 - decay))
 
 
-def make_g_phase(config: Config, models: Models):
+def make_g_phase(config: Config, models: Models, group=None):
     """-> ``g_phase(state, batches, draws, p_used)``: one update of the
     generator, mapping network and style extractor on ``models.device``;
     ``state`` is updated in place and returned with the metrics
     ``total_gen_loss``, ``gan_loss``, ``reconstruction_loss``,
     ``identity_loss``, ``kl_loss``, ``style_loss`` and ``path_loss`` (the
-    raw path term on path steps, 0 on the others)."""
-    g_loss_and_grad = make_g_loss(config, models)
+    raw path term on path steps, 0 on the others). With ``group``, the
+    gradients and the metrics (but ``kl_loss``, global already) are
+    averaged over the ranks before the Adams."""
+    g_loss_and_grad = make_g_loss(config, models, group)
     interval = config["tpu"]["path_interval"]
     decay = config["tpu"]["ema_decay"]
 
@@ -475,6 +506,12 @@ def make_g_phase(config: Config, models: Models):
         state: TrainState, batches: Batches, draws: GPhaseDraws, p_used: torch.Tensor
     ) -> tuple[TrainState, dict[str, torch.Tensor]]:
         metrics = g_loss_and_grad(state, batches, draws, p_used, state.step % interval == 0)
+        if group is not None:
+            names = [k for k in metrics if k != "kl_loss"]
+            means = group.reduce_gradients(
+                [list(m.parameters()) for m in (state.generator, state.mapping, state.extractor)],
+                [metrics[k] for k in names])
+            metrics = {**metrics, **dict(zip(names, means, strict=True))}
         for opt in (state.opt_g, state.opt_m, state.opt_s):
             opt.step()
         if state.ema_generator is not None:
@@ -504,16 +541,48 @@ def draw_step(generator: torch.Generator, config: Config, models: Models) -> Ste
     )
 
 
-def make_train_step(config: Config, models: Models):
+def _shard_style(rngs: StyleRngs, group) -> StyleRngs:
+    return rngs._replace(z1=group.shard(rngs.z1), z2=group.shard(rngs.z2))
+
+
+def _shard_augment(draws: AugmentDraws, group) -> AugmentDraws:
+    return AugmentDraws(GeometricDraws(*map(group.shard, draws.geom)),
+                        ColorDraws(*map(group.shard, draws.color)))
+
+
+def shard_draws(draws: StepDraws, group) -> StepDraws:
+    """This rank's rows of a fused step's global draws: every per-image
+    draw sliced (the latent noise by its packed 2B rows), the style
+    draws' mixing flag and crossover and the replay buffer's draws kept
+    global (every rank runs the buffer over the global batch)."""
+    d, g = draws.d, draws.g
+    noise = None if g.latent_noise is None else group.shard(g.latent_noise)
+    return StepDraws(
+        d=DPhaseDraws(style=_shard_style(d.style, group), buffer=d.buffer,
+                      aug_fake=_shard_augment(d.aug_fake, group),
+                      aug_real=_shard_augment(d.aug_real, group)),
+        g=GPhaseDraws(theta=group.shard(g.theta), fin_diff_h=group.shard(g.fin_diff_h),
+                      latent_noise=noise, style=_shard_style(g.style, group),
+                      aug=_shard_augment(g.aug, group),
+                      path_style=_shard_style(g.path_style, group)),
+    )
+
+
+def make_train_step(config: Config, models: Models, group=None):
     """-> ``train_step(state, batches, draws) -> (state, metrics)``: the D
     phase, then the G phase at the ADA probability entering the step; the
-    metrics of both phases."""
-    d_phase = make_d_phase(config, models)
-    g_phase = make_g_phase(config, models)
+    metrics of both phases. With ``group`` (``parallel.DataParallel``),
+    ``batches`` are this rank's rows of the global batch and ``draws``
+    the global step's (``draw_step`` at the config's batch size, the same
+    on every rank); the metrics are the global step's."""
+    d_phase = make_d_phase(config, models, group)
+    g_phase = make_g_phase(config, models, group)
 
     def train_step(
         state: TrainState, batches: Batches, draws: StepDraws
     ) -> tuple[TrainState, dict[str, torch.Tensor]]:
+        if group is not None:
+            draws = shard_draws(draws, group)
         p_used = state.ada.p
         state, d_metrics = d_phase(state, batches.d_shoeprints, batches.d_shoemarks, draws.d)
         state, g_metrics = g_phase(state, batches, draws.g, p_used)

@@ -47,8 +47,24 @@ the end writes the image grids, the validation FID/KID and a checkpoint.
   under ``torch.profiler``; the trace goes to ``<run>/trace/`` and the
   device's busy and idle share to ``Trainer.profile``.
 
-``tpu.compilation_cache_dir`` (a JAX compile cache) is ignored. More
-than one device is refused by name (``config.check_training_options``).
+- **Data parallelism** (a ``group``, ``parallel.DataParallel``, of
+  ``tpu.data_parallel`` ranks, one card each): every rank builds the
+  Trainer and runs the loop. Rank 0's state is broadcast at start (after
+  a resume every rank has read the same file onto its card). The data is
+  the JAX single-host mesh's: one global stream per domain
+  (``host_count`` 1), of which each rank gathers only its rows
+  (``BatchIterator(rows=...)``); each step's draws are the global batch's,
+  made alike on every rank. Rank 0 alone writes the log lines, grids,
+  evaluation (on its replica), TensorBoard, traces and checkpoints; the
+  others wait at a host-side barrier whose timeout covers the
+  evaluation. A SIGTERM to any rank stops every rank at the same group
+  boundary; the logged means are global, so a non-finite one raises on
+  every rank. The checkpoint schema is one card's: a checkpoint of four
+  ranks resumes on one card, and the reverse.
+
+``tpu.compilation_cache_dir`` (a JAX compile cache) is ignored.
+``tpu.spatial_parallel > 1`` is refused by name
+(``config.check_training_options``).
 """
 
 from __future__ import annotations
@@ -81,6 +97,7 @@ from one_to_many_gan_torch.migrate import (
     from_reference_checkpoint,
     to_reference_checkpoint,
 )
+from one_to_many_gan_torch.parallel import distributed, replicate
 from one_to_many_gan_torch.utils import tensorboard
 
 # Checkpoint draws are seeded from (random_seed, CHECKPOINT_SEED_OFFSET + step).
@@ -161,7 +178,10 @@ class Trainer:
 
     ``shoeprint_images`` / ``shoemark_images`` ([N, H, W, C] uint8) stand
     in for the data directories. ``device`` None means CUDA, and raises
-    without a GPU.
+    without a GPU. ``group`` (``parallel.DataParallel``) makes this
+    Trainer one rank of a data-parallel run on the group's device
+    (``device`` is then ignored); without one, a ``tpu.data_parallel``
+    that resolves to more than one rank raises by name.
     """
 
     def __init__(
@@ -172,13 +192,27 @@ class Trainer:
         shoemark_images: np.ndarray | None = None,
         verbose: bool = True,
         device=None,
+        group=None,
     ):
         check_training_options(config)
         self.config = config
-        self.verbose = verbose
+        self.group = group
+        self.main = group is None or group.is_main
+        self.verbose = verbose and self.main
         seed = config["training"]["random_seed"]
         self.seed = seed
-        self.models = Models(config, device=device, seed=seed)
+        if group is None:
+            self.models = Models(config, device=device, seed=seed)
+            ranks = distributed.data_parallel_ranks(config, self.models.device.type)
+            if ranks > 1:
+                msg = (
+                    f"tpu.data_parallel = {config['tpu']['data_parallel']!r} runs {ranks} "
+                    "ranks: train through `python -m one_to_many_gan_torch.train` (or "
+                    "torchrun), or pass a parallel.DataParallel group"
+                )
+                raise ValueError(msg)
+        else:
+            self.models = Models(config, device=group.device, seed=seed)
         self.device = self.models.device
 
         k_req = 1 if config["tpu"]["split_phases"] else max(1, config["tpu"]["steps_per_call"])
@@ -192,7 +226,7 @@ class Trainer:
             )
         self.steps_per_call = k
         self.state = init_train_state(config, self.models, seed=seed)
-        self.train_step = make_train_step(config, self.models)
+        self.train_step = make_train_step(config, self.models, group)
 
         if config["tpu"]["tensorboard"]:
             tensorboard.require()
@@ -212,14 +246,17 @@ class Trainer:
         self.shoemark_images = shoemark_images
         batch = config["training"]["batch_size"]
 
-        def train_iter(images, offset, *, as_float=False):
+        def train_iter(images, offset, *, as_float=False, rows=None):
             return BatchIterator(images, batch, shuffle=True, flip_prob=0.5,
-                                 seed=seed + offset, native=native, as_float=as_float)
+                                 seed=seed + offset, native=native, as_float=as_float,
+                                 rows=rows)
 
         # The D and G sub-steps' streams (uint8: normalised on the device),
-        # owned by the producer thread; the grids' streams of their own.
-        self.shoeprint_iter = train_iter(shoeprint_images, 1)
-        self.shoemark_iter = train_iter(shoemark_images, 2)
+        # owned by the producer thread, each rank gathering its rows; the
+        # grids' streams of their own (rank 0's).
+        rows = None if group is None else group.rows(batch)
+        self.shoeprint_iter = train_iter(shoeprint_images, 1, rows=rows)
+        self.shoemark_iter = train_iter(shoemark_images, 2, rows=rows)
         self.grid_print_iter = train_iter(shoeprint_images, 3, as_float=True)
         self.grid_mark_iter = train_iter(shoemark_images, 4, as_float=True)
         # the reference flips in every mode, the validation loader's too
@@ -243,6 +280,7 @@ class Trainer:
                 # each step took one D and one G batch of each domain
                 self.shoeprint_iter.skip(2 * self.start_step)
                 self.shoemark_iter.skip(2 * self.start_step)
+        replicate(group, self.state)
         self._copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
 
     # ------------------------------------------------------------ data
@@ -324,8 +362,14 @@ class Trainer:
         if step < final and step % ckpt_interval != 0 and step > self.start_step:
             # a pause or a preemption off the cadence: a model-only save, so
             # that a resume does not replay the steps since the last one
-            save_checkpoint(self.ckpt_mgr, step, self.state)
+            if self.main:
+                save_checkpoint(self.ckpt_mgr, step, self.state)
+            self._barrier()
         return self.state
+
+    def _barrier(self) -> None:
+        if self.group is not None:
+            self.group.barrier()
 
     def _run_loop(self, schedule, step, get_group, total) -> int:
         config = self.config
@@ -336,7 +380,7 @@ class Trainer:
         path = run_dir(config)
         t0 = time.perf_counter()
         for k in schedule:
-            profiling = bool(profile_step) and step <= profile_step < step + k
+            profiling = self.main and bool(profile_step) and step <= profile_step < step + k
             if profiling:
                 prof = self._start_profile()
                 t_prof = time.perf_counter()
@@ -355,12 +399,13 @@ class Trainer:
                 if self.verbose:
                     rate = (step - self.start_step) / (time.perf_counter() - t0)
                     print(line + f" [{rate:.2f} it/s]", flush=True)
-                path.mkdir(parents=True, exist_ok=True)
-                with (path / "log").open("a") as f:
-                    f.write(line + "\n")
-                with (path / "metrics.jsonl").open("a") as f:
-                    f.write(json.dumps({"step": step, **means}) + "\n")
-                if config["tpu"]["tensorboard"]:
+                if self.main:
+                    path.mkdir(parents=True, exist_ok=True)
+                    with (path / "log").open("a") as f:
+                        f.write(line + "\n")
+                    with (path / "metrics.jsonl").open("a") as f:
+                        f.write(json.dumps({"step": step, **means}) + "\n")
+                if self.main and config["tpu"]["tensorboard"]:
                     if self._tb is None:
                         self._tb = tensorboard.TensorBoardWriter(path / "tensorboard")
                     self._tb.write(step, means)
@@ -378,7 +423,10 @@ class Trainer:
             # on the cadence, and at the true end (a pause is no end)
             if step % ckpt_interval == 0 or step == final:
                 self.checkpoint(step)
-            if self._preempted:
+            preempted = self._preempted
+            if self.group is not None:
+                preempted = self.group.any(preempted)
+            if preempted:
                 break
         return step
 
@@ -421,7 +469,12 @@ class Trainer:
 
     def checkpoint(self, step: int) -> None:
         """Image grids, validation FID/KID and the model checkpoint of
-        ``step``; the draws from ``(random_seed, 7_000_000 + step)``."""
+        ``step``; the draws from ``(random_seed, 7_000_000 + step)``.
+        Under data parallelism rank 0 does it on its replica while the
+        others wait."""
+        if not self.main:
+            self._barrier()
+            return
         gen = seeded_generator(self.seed, CHECKPOINT_SEED_OFFSET + step, self.device)
         t0 = time.perf_counter()
         image_checkpoint(step, self.config, self.models, self.state,
@@ -433,3 +486,4 @@ class Trainer:
         save_checkpoint(self.ckpt_mgr, step, self.state)
         t3 = time.perf_counter()
         self.timings = {"image": t1 - t0, "val": t2 - t1, "save": t3 - t2}
+        self._barrier()

@@ -61,6 +61,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <climits>
 #include <cstdint>
 
@@ -403,17 +404,18 @@ cudaError_t launch(const void* x, void* y, long long planes, long long hw, int r
   if (smem > kMaxDynamicSmem || grid > INT_MAX) return cudaErrorInvalidValue;
   void (*kernel)(const T*, T*, long long, long long, int, int, float) =
       relu ? instance_norm_kernel<T, true> : instance_norm_kernel<T, false>;
-  // Allow the largest dynamic shared memory once per kernel and device.
-  static unsigned long long ready[2] = {0, 0};
+  // Allow the largest dynamic shared memory once per kernel and device
+  // (host threads may launch on several cards at once).
+  static std::atomic<unsigned long long> ready[2];
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   const unsigned long long bit = 1ull << (device & 63);
-  if (!(ready[relu ? 1 : 0] & bit)) {
+  if (!(ready[relu ? 1 : 0].load() & bit)) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kMaxDynamicSmem);
     if (err != cudaSuccess) return err;
-    ready[relu ? 1 : 0] |= bit;
+    ready[relu ? 1 : 0].fetch_or(bit);
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(grid));

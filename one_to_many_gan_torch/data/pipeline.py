@@ -4,7 +4,9 @@ The JAX package's ``data/pipeline.py``, copied: epoch permutations from
 ``default_rng(seed + host_id)`` with drop-last, a per-sample horizontal
 flip with probability ``flip_prob``, each host taking every
 ``host_count``-th image of an epoch, and ``skip(n)`` to fast-forward a
-resumed run. The same seed gives the same batches, byte for byte, as
+resumed run. ``rows`` makes a data-parallel rank gather only its rows of
+each batch, from the same stream (the same permutations and flip draws)
+as the whole batch's. The same seed gives the same batches, byte for byte, as
 the JAX package's iterator. With ``native=True`` float batches come from
 the C++ assembler (``native.assemble_batch``), as in the JAX package,
 whose iterator quietly turns it off where the library is missing; this
@@ -38,6 +40,9 @@ class BatchIterator:
         as_float: normalised float32 batches; False gives flipped uint8
             batches, which the trainer moves to the device (4x fewer
             bytes) and normalises there.
+        rows: a slice: gather only those rows of each batch (a
+            data-parallel rank's, ``DataParallel.rows``); the stream is the
+            whole batch's.
     """
 
     def __init__(
@@ -52,6 +57,7 @@ class BatchIterator:
         host_count: int = 1,
         native: bool = False,
         as_float: bool = True,
+        rows: slice | None = None,
     ):
         if images.ndim != 4:
             msg = f"expected [N,H,W,C], got {images.shape}"
@@ -66,6 +72,10 @@ class BatchIterator:
         self.flip_prob = flip_prob
         self.host_id = host_id
         self.host_count = host_count
+        if rows is not None and not 0 <= rows.start < rows.stop <= batch_size:
+            msg = f"rows {rows} are not a range of a batch of {batch_size}"
+            raise ValueError(msg)
+        self.rows = rows
         self._rng = np.random.default_rng(seed + host_id)
         self._queue: list[np.ndarray] = []
         n_local = len(self._epoch_order())
@@ -110,6 +120,8 @@ class BatchIterator:
             if self.flip_prob > 0
             else np.zeros(len(idx), dtype=bool)
         )
+        if self.rows is not None:
+            idx, flips = idx[self.rows], flips[self.rows]
         if self.native and self.as_float:
             return native_lib.assemble_batch(self.images, idx, flips)
         batch = self.images[idx]  # gather, uint8

@@ -18,7 +18,9 @@ CUBLAS_WORKSPACE_CONFIG = ":4096:8"
 
 
 def select_device(device: str | torch.device | None = None) -> torch.device:
-    """-> the device to run on: ``cuda`` when ``device`` is None.
+    """-> the device to run on: ``cuda`` when ``device`` is None (the
+    current card: a data-parallel rank's own, which
+    ``parallel.distributed.ensure_initialized`` sets).
 
     Raises ``RuntimeError`` when CUDA is asked for (explicitly or by
     default) and none is available.

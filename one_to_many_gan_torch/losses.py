@@ -45,13 +45,44 @@ def style_cycle_loss(original_w: torch.Tensor, reconstructed_w: torch.Tensor) ->
     return (1.0 - cos.mean()) + 0.2 * (a - b).square().mean()
 
 
-def kl_loss(combined_latents: torch.Tensor) -> torch.Tensor:
+class _ScaleGrad(torch.autograd.Function):
+    """Identity forward; the gradient times ``factor`` backward."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, factor: float) -> torch.Tensor:
+        ctx.factor = factor
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad * ctx.factor, None
+
+
+def kl_loss(combined_latents: torch.Tensor, group=None) -> torch.Tensor:
     """Pushes the latents toward N(0, 1): mean^2 + (var - 1)^2 over the
-    WHOLE packed tensor, with the biased variance."""
+    WHOLE packed tensor, with the biased variance.
+
+    With a data-parallel ``group`` (``parallel.DataParallel``) the tensor
+    is this rank's rows, and the mean and variance are the global batch's
+    (the JAX package computes them on the global array): the local sums
+    are all-reduced. The value is the global term on every rank. Its
+    gradient is this rank's rows' share of the global term's, times the
+    world size, so that the mean over ranks that ``reduce_gradients``
+    takes gives the global gradient: the one term whose gradient is not a
+    mean of per-rank gradients. The variance sums ``(x - mean)^2`` with the
+    mean held constant, whose gradient is exactly the global variance's
+    (that of the mean through it is ``-2 sum(x - mean) / N^2 = 0``)."""
     x = combined_latents.to(torch.promote_types(combined_latents.dtype, torch.float32))
-    mean = x.mean()
-    var = (x - mean).square().mean()
-    return mean.square() + (var - 1.0).square()
+    if group is None:
+        mean = x.mean()
+        var = (x - mean).square().mean()
+        return mean.square() + (var - 1.0).square()
+    n = x.numel() * group.world
+    s1 = x.sum()
+    mean = group.all_reduce_sum(s1) / n + (s1 - s1.detach()) / n
+    s2 = (x - mean.detach()).square().sum()
+    var = group.all_reduce_sum(s2) / n + (s2 - s2.detach()) / n
+    return _ScaleGrad.apply(mean.square() + (var - 1.0).square(), float(group.world))
 
 
 def path_loss(

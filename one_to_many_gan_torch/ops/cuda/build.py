@@ -35,6 +35,9 @@ NVCC_FLAGS = (
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-ffp-contract=off", "-shared")
 CXX_LIBS = ("-ljpeg", "-lpng", "-lpthread")
 
+# The CUDA sources of the training and serving paths (csrc/<name>.cu).
+KERNELS = ("instance_norm", "warp")
+
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -96,6 +99,16 @@ def build(name: str) -> dict:
         raise RuntimeError(msg)
     os.replace(tmp, out)
     return {"seconds": time.perf_counter() - t0, "log": proc.stdout + proc.stderr}
+
+
+def build_kernels() -> dict[str, dict]:
+    """Build every CUDA source of ``KERNELS``, one ``nvcc`` each, all
+    started together; -> ``build``'s result per name. Data-parallel
+    launchers call it once before they start the ranks."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        return dict(zip(KERNELS, pool.map(build, KERNELS), strict=True))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,5 +1,5 @@
-"""Programmatic config presets (dry runs, tests), and one card's copy of
-a config written for several devices."""
+"""Programmatic config presets (dry runs, tests), and the copy of a config
+written for several devices that a given number of cards runs."""
 
 from __future__ import annotations
 
@@ -89,19 +89,29 @@ def tiny_config(
     return config
 
 
-def one_card_overrides(config: Config) -> dict[str, Any]:
-    """The keys of ``config`` that one card cannot run, with the values of
-    one data-parallel replica of it: ``data_parallel`` 1 (and
-    ``batch_size`` the replica's share of the global batch) and
-    ``spatial_parallel`` 1."""
+def card_overrides(config: Config, cards: int = 1) -> dict[str, Any]:
+    """The keys of ``config`` to change so that ``cards`` cards run it, each
+    one data-parallel replica of it, with their new values:
+    ``data_parallel`` ``cards`` and ``batch_size`` ``cards`` times one
+    replica's share of the global batch (when the config sets a number of
+    replicas; with -1, all visible cards, ``data_parallel`` ``cards`` for
+    more than one card and the global batch kept), and
+    ``spatial_parallel`` 1. Only keys whose value changes are listed."""
+    if cards < 1:
+        msg = f"cards must be >= 1, got {cards}"
+        raise ValueError(msg)
     tpu = config["tpu"]
-    out: dict[str, Any] = {}
-    if tpu["data_parallel"] not in (1, -1):
-        out["data_parallel"] = 1
-        out["batch_size"] = config["training"]["batch_size"] // tpu["data_parallel"]
-    if tpu["spatial_parallel"] > 1:
-        out["spatial_parallel"] = 1
-    return out
+    batch = config["training"]["batch_size"]
+    dp = tpu["data_parallel"]
+    want: dict[str, Any] = {}
+    if dp != -1:
+        want = {"data_parallel": cards, "batch_size": batch // dp * cards}
+    elif cards > 1:
+        want = {"data_parallel": cards}
+    want["spatial_parallel"] = 1
+    current = {"data_parallel": dp, "batch_size": batch,
+               "spatial_parallel": tpu["spatial_parallel"]}
+    return {k: v for k, v in want.items() if current[k] != v}
 
 
 def _toml_value(value: Any) -> str:
@@ -112,14 +122,15 @@ def _toml_value(value: Any) -> str:
     return repr(value)
 
 
-def write_one_card_config(src: Path | str, dst: Path | str, **values: Any) -> dict[str, Any]:
-    """Write a copy of the TOML file ``src`` to ``dst`` that one card runs:
-    ``one_card_overrides`` of it, then ``values`` (other keys, such as the
+def write_card_config(src: Path | str, dst: Path | str, *, cards: int = 1,
+                      **values: Any) -> dict[str, Any]:
+    """Write a copy of the TOML file ``src`` to ``dst`` that ``cards`` cards
+    run: ``card_overrides`` of it, then ``values`` (other keys, such as the
     data folders), each by replacing its ``key = ...`` line, which must be
     the file's only line for that key. -> every key changed, with its new
     value, in that order."""
     text = Path(src).read_text()
-    changes = {**one_card_overrides(load_config(src)), **values}
+    changes = {**card_overrides(load_config(src), cards), **values}
     for key, value in changes.items():
         line = re.compile(rf"(?m)^{re.escape(key)} = .*$")
         if len(line.findall(text)) != 1:

@@ -14,9 +14,21 @@ axis). Request i draws its styles from its own
 equals the solo one. The same seed gives different shoemarks than the JAX
 server (``core/inference.py``).
 
+Data parallelism (``InferenceEngine(data_parallel=k)``, ``--data-parallel
+k``; the JAX engine's, its ``serve.py``): one process holds k replicas of
+the generator and mapping network, on ``cuda:0`` .. ``cuda:k-1`` (k CPU
+replicas with ``--device cpu``); each device call splits the flattened
+B*n style batch into k equal parts, each replica encodes the sources and
+decodes its part on its card from a host thread of its own, and the parts
+are joined on the host. -1 means every visible card; every n bucket must
+divide by k. The draws are made on the first replica's device, so the
+images equal one card's. Every replica encodes the sources again, so a
+small n can take longer on k cards than on one.
+
 API (stdlib ``http.server``):
 
-- ``GET /healthz`` -> ``{"status": "ok", "step": N, "ema": bool, ...}``
+- ``GET /healthz`` -> ``{"status": "ok", "step": N, "ema": bool,
+  "data_parallel": k, ...}``
 - ``GET /stats``   -> request count + latency percentiles (ms)
 - ``POST /generate?n=8&seed=0&theta=1.0`` with a PNG/JPEG body ->
   ``application/zip`` of ``n`` PNG shoemarks (``shoemark_0000.png``...)
@@ -29,7 +41,8 @@ API (stdlib ``http.server``):
 
 CLI:
     python -m one_to_many_gan_torch.serve config.toml [--artifact model.npz] \
-        [--host 0.0.0.0] [--port 8000] [--buckets 8,32,64] [--device cpu]
+        [--host 0.0.0.0] [--port 8000] [--buckets 8,32,64] [--device cpu] \
+        [--data-parallel k]
 
 Without ``--artifact`` it serves the configured run's latest checkpoint
 (its EMA generator when it has one: ``/healthz`` then says ``"ema":
@@ -47,6 +60,7 @@ import threading
 import time
 import warnings
 import zipfile
+from concurrent.futures import ThreadPoolExecutor, wait
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
@@ -58,6 +72,7 @@ from one_to_many_gan_torch.core.inference import make_inference_fns
 from one_to_many_gan_torch.core.state import Models
 from one_to_many_gan_torch.data.datasets import _load_image
 from one_to_many_gan_torch.data.pipeline import normalize_u8
+from one_to_many_gan_torch.device import select_device
 from one_to_many_gan_torch.export import load_inference_artifact
 from one_to_many_gan_torch.migrate import checkpoint_manager, load_inference_weights
 
@@ -100,6 +115,10 @@ class InferenceEngine:
             size (padded rows are zeros and discarded).
         device: ``"cuda"`` (the default; raises without a GPU) or
             ``"cpu"``.
+        data_parallel: replicas that split each decode's style batch
+            (-1: every visible card; the CPU has one unless asked for
+            more). Every n bucket must divide by it; more replicas than
+            cards raise.
     """
 
     def __init__(
@@ -111,6 +130,7 @@ class InferenceEngine:
         batch_buckets=(1, 2, 4),
         device=None,
         seed: int = 0,
+        data_parallel: int = 1,
     ):
         if not buckets or list(buckets) != sorted(set(buckets)):
             msg = f"buckets must be ascending and unique, got {buckets!r}"
@@ -121,8 +141,14 @@ class InferenceEngine:
         self.buckets = tuple(int(b) for b in buckets)
         self.batch_buckets = tuple(int(b) for b in batch_buckets)
         self.step, self.ema = 0, False
-        models = Models(config, device=device, seed=seed)
-        self.models = models
+        dev = select_device(device)
+        self.data_parallel = self._resolve_data_parallel(int(data_parallel), dev)
+        if dev.type == "cuda" and self.data_parallel > 1:
+            devices = [torch.device("cuda", i) for i in range(self.data_parallel)]
+        else:
+            devices = [dev] * self.data_parallel
+        self.replicas = [Models(config, device=d, seed=seed) for d in devices]
+        models = self.models = self.replicas[0]
         # one request on the device at a time; the HTTP layer is threaded
         self._lock = threading.Lock()
         # one /reload at a time (the threaded server allows concurrent ones)
@@ -130,7 +156,8 @@ class InferenceEngine:
         self._mgr = None
         if artifact is not None:
             params_g, params_m, self.step, self.ema = load_inference_artifact(artifact)
-            from_jax_params(models, params_g, params_m)
+            for replica in self.replicas:
+                from_jax_params(replica, params_g, params_m)
         else:
             self._mgr = checkpoint_manager(config)
             if self.reload() == 0:
@@ -144,8 +171,28 @@ class InferenceEngine:
         self.precision = config["tpu"]["precision"]
         self.image_size = tuple(config["data"]["image_size"])
         self.channels = config["data"]["image_channels"]
-        _, _, self._fn = make_inference_fns(models)
+        self._fns = [make_inference_fns(replica)[2] for replica in self.replicas]
+        self._pool = ThreadPoolExecutor(max(1, self.data_parallel - 1),
+                                        thread_name_prefix="replica")
         self.device_calls = 0
+
+    def _resolve_data_parallel(self, k: int, dev: torch.device) -> int:
+        """-1 -> every visible card (one on the CPU); checks that the
+        replicas exist and that every n bucket divides by them."""
+        n_cards = torch.cuda.device_count() if dev.type == "cuda" else None
+        if k == -1:
+            k = n_cards or 1
+        if k < 1:
+            msg = f"data_parallel must be -1 or >= 1, got {k}"
+            raise ValueError(msg)
+        if n_cards is not None and k > n_cards:
+            msg = f"data_parallel={k} needs {k} cards, have {n_cards}"
+            raise ValueError(msg)
+        bad = [b for b in self.buckets if b % k]
+        if bad:
+            msg = f"data_parallel={k} must divide every n bucket; offending buckets: {bad}"
+            raise ValueError(msg)
+        return k
 
     def reload(self) -> int:
         """Load the configured run's newest checkpoint when it is newer
@@ -161,7 +208,8 @@ class InferenceEngine:
             if latest is not None and latest != self.step:
                 ckpt = self._mgr.load(latest)
                 with self._lock:
-                    self.ema = load_inference_weights(ckpt, self.models)
+                    for replica in self.replicas:
+                        self.ema = load_inference_weights(ckpt, replica)
                     self.step = latest
             return self.step
 
@@ -237,13 +285,35 @@ class InferenceEngine:
         theta_arr = np.zeros((bb,), np.float32)
         theta_arr[:b] = np.asarray(thetas, np.float32)
         imgs = torch.from_numpy(normalize_u8(src))
+        thetas_t = torch.from_numpy(theta_arr)
         with self._lock:
             z = self._draws(seed_arr, n_bucket)
-            outs = self._fn(imgs, z, torch.from_numpy(theta_arr))
-            u8 = ((outs[:b].float() + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)
-            u8 = u8.cpu().numpy()
+            # the draws reach every card before any decode is queued (a copy
+            # queued after a card's decode would wait for it)
+            zs = [z.to(replica.device) for replica in self.replicas]
+            m = bb * n_bucket // self.data_parallel
+
+            def part(i: int) -> np.ndarray:
+                """Replica i's rows, decoded and read back."""
+                rows = slice(i * m, (i + 1) * m)
+                return _to_u8(self._fns[i](imgs, zs[i], thetas_t, rows=rows)).cpu().numpy()
+
+            # replicas 1.. from threads of their own, the first from this
+            # one, so that the cards' launches are queued at once
+            others = [self._pool.submit(part, i) for i in range(1, self.data_parallel)]
+            try:
+                first = part(0)
+            finally:
+                wait(others)  # none outlives the lock
+            flat = np.concatenate([first] + [f.result() for f in others])
             self.device_calls += 1
+        u8 = flat.reshape(bb, n_bucket, *flat.shape[1:])
         return [u8[i, : ns[i]] for i in range(b)]
+
+
+def _to_u8(images: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] images -> uint8, on their device."""
+    return ((images.float() + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)
 
 
 class RequestTimeoutError(RuntimeError):
@@ -502,6 +572,7 @@ def make_handler(engine: InferenceEngine, stats: _Stats,
                         "image_size": list(engine.image_size),
                         "device": str(engine.device),
                         "precision": engine.precision,
+                        "data_parallel": engine.data_parallel,
                     },
                 )
             elif path == "/stats":
@@ -625,6 +696,15 @@ def main(argv: list[str] | None = None) -> None:
     )
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument(
+        "--data-parallel",
+        type=int,
+        default=1,
+        help="split each decode over this many cards, one generator replica "
+        "each (-1: every visible card); every n bucket must divide by it. "
+        "Each replica encodes the sources again, so a small n can take longer "
+        "than on one card",
+    )
+    ap.add_argument(
         "--max-batch",
         type=int,
         default=4,
@@ -661,10 +741,11 @@ def main(argv: list[str] | None = None) -> None:
         buckets=[int(b) for b in args.buckets.split(",")],
         artifact=args.artifact,
         device=args.device,
+        data_parallel=args.data_parallel,
     )
     print(
         f"serving step {engine.step} ({'EMA' if engine.ema else 'raw'} generator) "
-        f"on {engine.device}; warming {len(engine.buckets)} buckets..."
+        f"on {engine.device} x {engine.data_parallel}; warming {len(engine.buckets)} buckets..."
     )
     warm_s = engine.warmup(batched=args.max_batch > 1, max_batch=args.max_batch)
     print(f"warm in {warm_s:.1f}s; serving on {args.host}:{args.port}")

@@ -28,6 +28,17 @@ Both modes run on ``cuda`` unless ``--device cpu``, and raise without a
 GPU. With ``training.deterministic_cuda_kernels = true`` two runs give
 the same bits (``device.use_deterministic_kernels``; the cuBLAS
 workspace is set before CUDA starts).
+
+Data parallelism: when ``tpu.data_parallel`` resolves to more than one
+rank (``parallel.distributed.data_parallel_ranks``: -1 is every visible
+card; more than there are raise), both modes run one rank per card: the
+CLI builds the CUDA kernels once, then starts the ranks itself (one
+process each, NCCL over a free local port) and waits for them, or, under
+torchrun, this process is one of them. With ``--device cpu`` the ranks
+are gloo processes (``data_parallel`` of them; -1 is one). A rank's
+failure ends every rank, and the CLI exits with its code (42 for
+``TrainingDiverged``). Rank 0 prints; ``--synthetic-steps`` then times
+each step of the data-parallel step on its card.
 """
 
 from __future__ import annotations
@@ -48,7 +59,8 @@ from one_to_many_gan_torch.core.train_step import (
     make_train_step,
     synthetic_batch,
 )
-from one_to_many_gan_torch.device import set_cublas_workspace
+from one_to_many_gan_torch.device import select_device, set_cublas_workspace
+from one_to_many_gan_torch.parallel import distributed, replicate, shard_batch
 
 DIVERGED_EXIT_CODE = 42
 
@@ -64,35 +76,42 @@ def setup(config: Config, *, seed: int = 0, ada_p: float = 0.0, device=None):
     return models, state, generator
 
 
-def run_step(config: Config, models: Models, state: TrainState, train_step, generator):
-    """One fused step on four fresh synthetic batches and fresh draws."""
+def run_step(config: Config, models: Models, state: TrainState, train_step, generator,
+             group=None):
+    """One fused step on four fresh synthetic batches and fresh draws (the
+    global batch's; with ``group`` the step takes this rank's rows)."""
     b = config["training"]["batch_size"]
-    batches = Batches(*(
-        synthetic_batch(generator, b, models.image_size, models.channels) for _ in range(4)
-    ))
-    return train_step(state, batches, draw_step(generator, config, models))
+    batches = [shard_batch(group, synthetic_batch(generator, b, models.image_size,
+                                                  models.channels)) for _ in range(4)]
+    return train_step(state, Batches(*batches), draw_step(generator, config, models))
 
 
-def run_synthetic(config: Config, steps: int, *, seed: int, ada_p: float, device) -> None:
-    """``--synthetic-steps``: fused steps on noise, one JSON line each."""
+def run_synthetic(config: Config, steps: int, *, seed: int, ada_p: float, device,
+                  group=None) -> None:
+    """``--synthetic-steps``: fused steps on noise, one JSON line each
+    (rank 0's, with ``group``)."""
+    if group is not None:
+        device = group.device
     models, state, generator = setup(config, seed=seed, ada_p=ada_p, device=device)
-    train_step = make_train_step(config, models)
+    replicate(group, state)
+    train_step = make_train_step(config, models, group)
     interval = config["tpu"]["path_interval"]
     for step in range(steps):
         path_step = state.step % interval == 0
         t0 = time.perf_counter()
-        state, metrics = run_step(config, models, state, train_step, generator)
+        state, metrics = run_step(config, models, state, train_step, generator, group)
         if models.device.type == "cuda":
             torch.cuda.synchronize(models.device)
         ms = (time.perf_counter() - t0) * 1e3
         line = {k: float(v) for k, v in metrics.items()}
         line.update(step=step, path_step=path_step, ms=ms,
                     buffer_count=int(state.buffer.count), ada_count=int(state.ada.count),
-                    device=str(models.device))
-        print(json.dumps(line), flush=True)
+                    device=str(models.device), ranks=1 if group is None else group.world)
+        if group is None or group.is_main:
+            print(json.dumps(line), flush=True)
 
 
-def main(argv: list[str] | None = None) -> None:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("config", nargs="?", default="config.toml")
@@ -101,21 +120,59 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--seed", type=int, default=0, help="--synthetic-steps only")
     ap.add_argument("--ada-p", type=float, default=0.0, help="--synthetic-steps only")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
-    args = ap.parse_args(argv)
-    config = load_config(args.config)
-    if config["training"]["deterministic_cuda_kernels"]:
-        set_cublas_workspace()  # before anything touches CUDA
+    return ap
+
+
+def _run(config: Config, args, group=None) -> None:
+    """Either mode in this process (one rank of ``group``, if given)."""
     if args.synthetic_steps is not None:
         run_synthetic(config, args.synthetic_steps, seed=args.seed, ada_p=args.ada_p,
-                      device=args.device)
+                      device=args.device, group=group)
         return
     from one_to_many_gan_torch.core.trainer import Trainer, TrainingDiverged
 
     try:
-        Trainer(config, device=args.device).run()
+        Trainer(config, device=args.device, group=group).run()
     except TrainingDiverged as exc:
         print(f"TrainingDiverged: {exc}", file=sys.stderr)
         sys.exit(DIVERGED_EXIT_CODE)
+
+
+def _rank(group, argv: list[str]) -> None:
+    """One data-parallel rank of the CLI (``distributed.spawn``'s target)."""
+    args = _parser().parse_args(argv)
+    _run(load_config(args.config), args, group)
+
+
+def main(argv: list[str] | None = None) -> None:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _parser().parse_args(argv)
+    config = load_config(args.config)
+    if config["training"]["deterministic_cuda_kernels"]:
+        set_cublas_workspace()  # before anything touches CUDA; the ranks inherit it
+    device_type = select_device(args.device).type
+    ranks = distributed.data_parallel_ranks(config, device_type)
+    if ranks == 1:
+        _run(config, args)
+        return
+    timeout_s = distributed.barrier_timeout_s(config)
+    if distributed.torchrun_present():
+        group = distributed.ensure_initialized(device_type, timeout_s=timeout_s)
+        if group.world != ranks:
+            msg = (f"torchrun started {group.world} ranks; tpu.data_parallel resolves to "
+                   f"{ranks}")
+            raise ValueError(msg)
+        _run(config, args, group)
+        return
+    if device_type == "cuda":
+        from one_to_many_gan_torch.ops.cuda import build
+
+        build.build_kernels()  # once, before the ranks would each build them
+    try:
+        distributed.spawn(_rank, ranks, device_type, (argv,), timeout_s=timeout_s)
+    except distributed.RankFailed as exc:
+        print(f"train: {exc}", file=sys.stderr)
+        sys.exit(exc.exitcode)
 
 
 if __name__ == "__main__":

@@ -10,7 +10,8 @@ starting at ``--ada-p``. Prints one JSON line per step: the metrics, the
 buffer's and the ADA window's counts, and the step's wall time (ms,
 synchronised on CUDA). Runs on ``cuda`` unless ``--device cpu``; raises
 without a GPU. The generator stays as initialised: ``train.py`` runs the
-fused step, both phases.
+fused step, both phases. One process only: an explicit
+``tpu.data_parallel > 1`` is refused by name (-1 runs one process here).
 """
 
 from __future__ import annotations
@@ -52,6 +53,10 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     config = load_config(args.config)
+    if config["tpu"]["data_parallel"] > 1:
+        msg = (f"tpu.data_parallel = {config['tpu']['data_parallel']!r} is not ported to "
+               "train_d (one process); train.py runs data-parallel steps; set it to 1")
+        raise NotImplementedError(msg)
     if config["training"]["deterministic_cuda_kernels"]:
         set_cublas_workspace()  # before anything touches CUDA
     models, state, d_phase, generator = setup(

@@ -459,9 +459,10 @@ def test_serving_models_hold_no_discriminator():
 
 
 def test_make_d_phase_refuses_options_not_ported():
-    cfg = port_tiny_config((SIZE, SIZE), BATCH, tpu={"data_parallel": 2})
-    with pytest.raises(NotImplementedError, match="tpu.data_parallel.*ROADMAP.md"):
+    cfg = port_tiny_config((SIZE, SIZE), BATCH, tpu={"spatial_parallel": 2})
+    with pytest.raises(NotImplementedError, match="tpu.spatial_parallel.*ROADMAP.md"):
         check_training_options(cfg)
+    check_training_options(port_tiny_config((SIZE, SIZE), BATCH, tpu={"data_parallel": 2}))
     check_training_options(port_tiny_config((SIZE, SIZE), BATCH, tpu={"ada_supersample": True}))
     check_training_options(port_tiny_config((SIZE, SIZE), BATCH, tpu={"ada_pallas": True}))
     check_training_options(port_tiny_config((SIZE, SIZE), BATCH,

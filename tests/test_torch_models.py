@@ -205,8 +205,9 @@ def _many_to_many_pair(built, n=3):
     want = jax_m2m(params_g, params_m, jnp.asarray(images), keys, n, jnp.asarray(thetas))
     _, _, port_m2m = port_inference_fns(pm)
     got = port_m2m(torch.from_numpy(images), torch.from_numpy(z), torch.from_numpy(thetas))
-    assert got.shape == want.shape == (2, n, SIZE, SIZE, 1)
-    return got.float().numpy(), np.asarray(want, np.float32)
+    assert got.shape == (2 * n, SIZE, SIZE, 1)  # request i at rows i*n .. (i+1)*n - 1
+    assert want.shape == (2, n, SIZE, SIZE, 1)
+    return got.float().numpy().reshape(want.shape), np.asarray(want, np.float32)
 
 
 def test_many_to_many_matches_jax_f32(f32):
@@ -351,8 +352,8 @@ def test_port_imports_no_jax():
 
 def test_port_sources_never_name_the_jax_package():
     """Source guard: no later change may re-couple the port to the
-    reference. Scans the port's Python, CUDA and C++ sources, chip_smoke.py and
-    the port's training-dynamics script."""
+    reference. Scans the port's Python, CUDA and C++ sources, chip_smoke.py,
+    the port's training-dynamics script and its multi-card smoke."""
     needles = ("import jax", "from jax", "flax", "one_to_many_gan_tpu")
     files = [
         *sorted((REPO / "one_to_many_gan_torch").rglob("*.py")),
@@ -360,6 +361,7 @@ def test_port_sources_never_name_the_jax_package():
         *sorted((REPO / "one_to_many_gan_torch").rglob("*.cpp")),
         REPO / "chip_smoke.py",
         REPO / "scripts" / "train_dynamics_torch.py",
+        REPO / "scripts" / "multi_card_smoke.py",
     ]
     hits = [
         f"{path.relative_to(REPO)}:{i}: {line.strip()}"

@@ -53,7 +53,7 @@ from one_to_many_gan_torch.migrate import (
 from one_to_many_gan_torch.ops.pad import pad
 from one_to_many_gan_torch.ops.cuda import fused_instance_norm
 from one_to_many_gan_torch.ops.cuda import instance_norm as in_module
-from one_to_many_gan_torch.presets import one_card_overrides, write_one_card_config
+from one_to_many_gan_torch.presets import card_overrides, write_card_config
 from tests.helpers import write_tiny_config
 
 
@@ -408,9 +408,9 @@ def test_one_card_copy_of_the_production_config(tmp_path):
     source = load_config(src)
     with pytest.raises(NotImplementedError, match="not ported"):
         check_training_options(source)
-    assert one_card_overrides(source) == {"data_parallel": 1, "batch_size": 8,
+    assert card_overrides(source) == {"data_parallel": 1, "batch_size": 8,
                                           "spatial_parallel": 1}
-    changes = write_one_card_config(src, tmp_path / "one.toml",
+    changes = write_card_config(src, tmp_path / "one.toml",
                                     shoeprint_data_dir=str(tmp_path / "prints"))
     config = load_config(tmp_path / "one.toml")
     check_training_options(config)
@@ -425,4 +425,4 @@ def test_one_card_copy_of_the_production_config(tmp_path):
     after = (tmp_path / "one.toml").read_text().splitlines()
     assert len(before) == len(after) and sum(a != b for a, b in zip(before, after)) == 4
     with pytest.raises(ValueError, match="expected one line for 'remat_x'"):
-        write_one_card_config(src, tmp_path / "bad.toml", remat_x=1)
+        write_card_config(src, tmp_path / "bad.toml", remat_x=1)

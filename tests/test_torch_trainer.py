@@ -357,10 +357,17 @@ def test_halt_on_nonfinite_off_trains_through(tmp_path):
     assert trainer.run(max_steps=1).step == 1
 
 
-@pytest.mark.parametrize(("key", "value"), [("data_parallel", "2"), ("spatial_parallel", "2")])
-def test_refused_tpu_keys_raise_by_name(tmp_path, key, value):
-    """Only more than one device is refused."""
-    with pytest.raises(NotImplementedError, match=rf"tpu\.{key} = .*not ported"):
+@pytest.mark.parametrize(("key", "value", "error", "match"), [
+    pytest.param("data_parallel", "2", ValueError, "runs 2 ranks: train through",
+                 id="data_parallel-2"),
+    pytest.param("spatial_parallel", "2", NotImplementedError, "not ported",
+                 id="spatial_parallel-2"),
+])
+def test_refused_tpu_keys_raise_by_name(tmp_path, key, value, error, match):
+    """``spatial_parallel > 1`` is refused; more than one data-parallel
+    rank needs a process group (the CLI or torchrun starts one), so a
+    Trainer of one process refuses it by name."""
+    with pytest.raises(error, match=rf"tpu\.{key} = .*{match}"):
         _trainer(_config(tmp_path, f"{key} = {value}"))
 
 
