@@ -137,7 +137,22 @@ started together), then runs, in order:
    alike), the launches of
    each step phase 11's (3 warp forwards, 1 warp backward, 30 instance
    norms), the collectives' device time in one step's profile, and the
-   all-reduce of each optimiser's gradient buffer timed with its bytes.
+   all-reduce of each optimiser's gradient buffer timed with its bytes;
+18. int8 serving (``--int8``) at ``configs/default.toml``: (a) the int8
+   conv kernel at the 10 sites of an n = 64 decode, on the codes of the
+   float32 and the bfloat16 decode's activations, and at ragged shapes,
+   bitwise equal to its plain version and to a second launch, with the
+   kernel's, the plain version's, the library route's (im2col and
+   ``torch._int_mm``), a bfloat16 cuDNN conv's (not the same function) and
+   the bound's times per site type and the quantise step's; (b) int8
+   engines in float32 and bfloat16 over HTTP (n = 8, 32, 64, npy, median
+   of 3) beside the float engines, 10 int8 and 9 instance-norm launches a
+   device call, ``/healthz`` ``"int8": true``, images against the float32
+   engine's (mean |delta| in uint8 levels, tanh PSNR); (c) the int8
+   engine on the card against the CPU at n = 8: the card's int8 conv on
+   the CPU's inputs of every site bitwise the CPU's, the images as far
+   apart as int8 and float32 may be, the flipped codes of every site
+   counted.
    Four cards: ``scripts/multi_card_smoke.py``.
 
 Any failed check raises, and the script exits non-zero. Before its last
@@ -169,8 +184,10 @@ ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "default.toml"
 OUT = ROOT / "chiprun_out" / "chip_smoke.json"
 
-# H100 SXM device memory rate (NVIDIA data sheet), for the bytes bound.
+# H100 SXM device memory rate and dense int8 tensor-core rate (NVIDIA data
+# sheet), for the bounds.
 HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
 # The JAX package's own instance-norm tolerances (tests/test_pallas_kernels.py).
 IN_TOL = {"float32": 2e-5, "bfloat16": 0.05}
 # Card against CPU, float32 with TF32 off, on the tanh output in [-1, 1]:
@@ -383,6 +400,38 @@ S_BARE_STEPS = 4
 REMAT_MODES = ("none", "conv", "full")
 # (e) Steps of the Trainer with native_loader = true, where it builds.
 S_NATIVE_STEPS = 2
+
+# Phase 18, int8 serving at CONFIG. The decoder's int8 convs of one decode
+# chunk: 4 modulated resnet blocks x 2 convs, then 2 upsample convs; the
+# index of each site type's first site in call order.
+INT8_SITES_PER_DECODE = 10
+INT8_SITE_TYPES = {"resnet": 0, "up1": 8, "up2": 9}
+INT8_REPLACES = ("no Pallas kernel: XLA's int8 conv_general_dilated at ops/quantize.py:79-89 "
+                 "of the JAX package")
+INT8_TIMING_REPS = 5
+# Ragged shapes (B, C, Hp, Wp, O): pixels and channels off the 128 x 128 /
+# 128 x 64 tiles, C = 32 and 64.
+INT8_RAGGED = ((1, 32, 5, 7, 8), (2, 64, 19, 23, 70), (3, 32, 11, 40, 129),
+               (1, 128, 34, 18, 64))
+# int8 against float32 images: mean |delta| in uint8 levels, the JAX
+# package's bound (tests/test_int8.py).
+INT8_MEAN_LEVELS = 4.0
+# The int8 engine on the card against the CPU (f32, TF32 off, n = 8). The
+# float parts differ as phase 4's do (1e-3 on the output), so a value that
+# lies within that of a rounding tie takes the neighbouring code on one
+# side: a few in 10^5 at the first int8 site (at most
+# INT8_FIRST_SITE_FLIPS of its codes). A flipped code moves the conv's
+# outputs around it by a code's step, which flips codes of the next site,
+# and so on: by the last site some 15 % of the codes differ (measured),
+# and the two images are two samples of the int8 path's rounding, each as
+# far from the float32 one. So the images are held as int8 is held to
+# float32: mean |delta| under INT8_MEAN_LEVELS uint8 levels and a tanh
+# PSNR above INT8_PSNR_FLOOR (the JAX package's tests/test_int8.py); and
+# the card's int8 conv (quantise, layout, kernel) on the CPU's inputs of
+# every site is bitwise the CPU's.
+INT8_FIRST_SITE_FLIPS = 1e-3
+INT8_PSNR_FLOOR = 30.0
+INT8_CPU_N = 8
 
 
 def log(msg: str) -> None:
@@ -723,11 +772,11 @@ def phase_serve(torch, config, source: np.ndarray) -> tuple[dict, object]:
 # ---------------------------------------------------------------- phase 4/5
 
 
-def _fixed_inputs(torch, source: np.ndarray, w_dim: int):
+def _fixed_inputs(torch, source: np.ndarray, w_dim: int, n: int = 2):
     from one_to_many_gan_torch.data.pipeline import normalize_u8
 
     image = torch.from_numpy(normalize_u8(source[None]))
-    z = torch.from_numpy(np.random.default_rng(5).standard_normal((1, 2, w_dim)).astype(np.float32))
+    z = torch.from_numpy(np.random.default_rng(5).standard_normal((1, n, w_dim)).astype(np.float32))
     return image, z, torch.ones(1)
 
 
@@ -3087,8 +3136,8 @@ def compare_steps(torch, got: dict, want: dict, lr: float, first: bool, label: s
     tolerance wherever Adam must move them alike (``held_mask``), which
     must be at least ``min_held`` of them. ``got`` / ``want``: {"metrics",
     "grads", "params"} (tensors on any device). -> the largest errors."""
-    out = {"metric_rel": 0.0, "grad_rel": 0.0, "param_err_held": 0.0, "param_err": 0.0,
-           "held_share": 0.0}
+    out = {"metric_rel": 0.0, "grad_rel": 0.0, "grad_worst": None, "param_err_held": 0.0,
+           "param_err": 0.0, "held_share": 0.0}
     for name, w in want["metrics"].items():
         g = got["metrics"][name]
         check(abs(g - w) <= STEP_ATOL + STEP_RTOL * abs(w), f"{label}: {name} {g} against {w}")
@@ -3106,7 +3155,8 @@ def compare_steps(torch, got: dict, want: dict, lr: float, first: bool, label: s
             continue
         rel = (g - w).abs().max().item() / scale
         check(rel <= grad_rtol, f"{label}: gradient {name} {rel:.3g} of its largest entry")
-        out["grad_rel"] = max(out["grad_rel"], rel)
+        if rel > out["grad_rel"]:
+            out["grad_rel"], out["grad_worst"] = rel, name
         same = held_mask(g, w, lr / 100 if name.startswith("m.") else lr, first)
         held += int(same.sum())
         if same.any():
@@ -3204,7 +3254,7 @@ def phase_data_parallel(torch) -> dict:
         group.close()
         dist.destroy_process_group()
     nccl_ms = sum(k["ms"] for k in prof["selected"])
-    worst = {key: max(e[key] for e in errs) for key in errs[0]}
+    worst = {key: max(e[key] for e in errs) for key in errs[0] if key != "grad_worst"}
     worst["held_share"] = min(e["held_share"] for e in errs)
     log(f"data-parallel step, world 1 over NCCL ({D_SIZE}x{D_SIZE}, batch {D_BATCH}, float32, "
         f"{DP_STEPS} steps, each from the no-group run's state): metrics "
@@ -3220,6 +3270,293 @@ def phase_data_parallel(torch) -> dict:
     return {"launches": total, "per_step": launches, "errors": errs, "step_ms": step_ms,
             "nccl_ms": nccl_ms, "nccl_kernels": prof["selected"], "profile_busy_ms":
             prof["busy_ms"], "idle_share": prof["idle_share"], "allreduce": allreduce}
+
+
+# ---------------------------------------------------------------- phase 18
+
+
+@contextlib.contextmanager
+def int8_sites(seen: list):
+    """Record ``(x, w)``, the padded float input and the weight, of every
+    int8 conv of the decoder (``ops/modulated.py``'s call of
+    ``ops/quantize.int8_conv``), in call order, and run the conv."""
+    from one_to_many_gan_torch.ops import modulated
+
+    real = modulated.int8_conv
+
+    def tap(x, w):
+        seen.append((x, w))
+        return real(x, w)
+
+    modulated.int8_conv = tap
+    try:
+        yield seen
+    finally:
+        modulated.int8_conv = real
+
+
+def int8_library(torch, xq, wq, xs, ws):
+    """The yardstick, never on the path: im2col (the 9 taps materialised)
+    and ``torch._int_mm``, then the same rescale."""
+    b, hp, wp, c = xq.shape
+    o, kh, kw, _ = wq.shape
+    ho, wo = hp - kh + 1, wp - kw + 1
+    cols = xq.unfold(1, kh, 1).unfold(2, kw, 1).permute(0, 1, 2, 4, 5, 3)
+    y32 = torch._int_mm(cols.reshape(b * ho * wo, kh * kw * c), wq.reshape(o, -1).t())
+    y = y32.view(b, ho, wo, o).permute(0, 3, 1, 2).to(torch.float32)
+    return y * (xs[:, None, None, None] * ws[None, :, None, None])
+
+
+def int8_bound_ms(xq_shape, wq_shape) -> tuple[float, str]:
+    """The least time of one int8 conv on the card: the larger of its
+    2*M*N*K operations at the dense int8 rate and its bytes (codes and
+    scales read once, the float32 output written once) at the memory
+    rate. -> (ms, "operations" or "bytes")."""
+    b, hp, wp, c = xq_shape
+    o, kh, kw, _ = wq_shape
+    m = b * (hp - kh + 1) * (wp - kw + 1)
+    ops = 2.0 * m * o * kh * kw * c
+    nbytes = b * hp * wp * c + o * kh * kw * c + 4 * (b + o) + 4 * m * o
+    t_ops, t_bytes = ops / INT8_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_int8_kernel(torch, config, source: np.ndarray) -> dict:
+    """18a: the int8 conv kernel against its plain version at the 10 sites
+    of an n = 64 decode, on the codes of float32 and bfloat16 activations,
+    and at ragged shapes; times per site type."""
+    import torch.nn.functional as F
+
+    from one_to_many_gan_torch.core import Models, make_inference_fns
+    from one_to_many_gan_torch.ops.cuda.int8_conv import int8_conv_codes, int8_conv_plain
+    from one_to_many_gan_torch.ops.quantize import kernel_operands
+
+    flush = torch.zeros(128 * 2**20, dtype=torch.uint8, device="cuda")
+    n = BUCKETS[-1]
+    sites, types = [], {}
+    for dtype_name in ("float32", "bfloat16"):
+        cfg = copy.deepcopy(config)
+        cfg["tpu"]["precision"] = dtype_name
+        models = Models(cfg, device="cuda", seed=0, int8_decode=True)
+        seen: list = []
+        with int8_sites(seen):
+            make_inference_fns(models)[2](*_fixed_inputs(torch, source, models.w_dim, n))
+        torch.cuda.synchronize()
+        check(len(seen) == INT8_SITES_PER_DECODE,
+              f"{len(seen)} int8 convs in one n={n} decode, want {INT8_SITES_PER_DECODE}")
+        with torch.inference_mode():
+            for i in range(len(seen)):
+                x, w = seen[i]
+                seen[i] = None
+                codes = kernel_operands(x, w)
+                got, again = int8_conv_codes(*codes), int8_conv_codes(*codes)
+                want = int8_conv_plain(*codes)
+                torch.cuda.synchronize()
+                site = {"dtype": dtype_name, "site": i, "x": list(x.shape), "w": list(w.shape),
+                        "max_abs_err": (got - want).abs().max().item(),
+                        "bitwise": torch.equal(got, want),
+                        "repeat_bitwise_equal": torch.equal(got, again)}
+                check(site["bitwise"] and site["repeat_bitwise_equal"],
+                      f"int8 kernel differs from its plain version or itself: {site}")
+                del got, again, want
+                kind = next((k for k, v in INT8_SITE_TYPES.items() if v == i), None)
+                if kind is not None:
+                    t = types.setdefault(kind, {"x": list(x.shape), "w": list(w.shape)})
+                    t[f"quantise_ms_{dtype_name}"] = time_cold_ms(
+                        torch, {"q": lambda a, w=w: kernel_operands(a, w)}, x, flush,
+                        INT8_TIMING_REPS)["q"]
+                    if dtype_name == "float32":
+                        xb = codes[0].permute(0, 3, 1, 2).to(torch.bfloat16).contiguous()
+                        wb = codes[1].permute(0, 3, 1, 2).to(torch.bfloat16).contiguous()
+                        t.update(time_cold_ms(torch, {
+                            "kernel_ms": lambda c: int8_conv_codes(*c),
+                            "plain_ms": lambda c: int8_conv_plain(*c),
+                            "library_ms": lambda c: int8_library(torch, *c),
+                        }, codes, flush, INT8_TIMING_REPS))
+                        t["library_bitwise"] = torch.equal(int8_library(torch, *codes),
+                                                           int8_conv_plain(*codes))
+                        t["bf16_conv_ms"] = time_cold_ms(
+                            torch, {"c": lambda a: F.conv2d(a, wb)}, xb, flush,
+                            INT8_TIMING_REPS)["c"]
+                        t["bound_ms"], t["bound_by"] = int8_bound_ms(tuple(codes[0].shape),
+                                                                     tuple(codes[1].shape))
+                        del xb, wb
+                sites.append(site)
+                del x, w, codes
+        del models, seen
+        torch.cuda.empty_cache()
+    gen = torch.Generator("cuda").manual_seed(18)
+    ragged = []
+    for b, c, hp, wp, o in INT8_RAGGED:
+        x = torch.randn((b, c, hp, wp), generator=gen, device="cuda")
+        w = torch.randn((o, c, 3, 3), generator=gen, device="cuda") * 0.05
+        codes = kernel_operands(x, w)
+        got, want = int8_conv_codes(*codes), int8_conv_plain(*codes)
+        torch.cuda.synchronize()
+        ragged.append({"shape": [b, c, hp, wp, o], "bitwise": torch.equal(got, want)})
+        check(ragged[-1]["bitwise"], f"int8 kernel differs from plain at {ragged[-1]}")
+    del flush
+    torch.cuda.empty_cache()
+    counts = {"resnet": INT8_SITES_PER_DECODE - 2, "up1": 1, "up2": 1}
+    per_decode = {key: sum(counts[k] * types[k][key] for k in counts)
+                  for key in ("kernel_ms", "plain_ms", "library_ms", "bf16_conv_ms", "bound_ms",
+                              "quantise_ms_float32", "quantise_ms_bfloat16")}
+    ops_share = sum(counts[k] * types[k]["bound_ms"] for k in counts
+                    if types[k]["bound_by"] == "operations") / per_decode["bound_ms"]
+    per_decode["bound_by"] = "operations" if ops_share >= 0.5 else "bytes"
+    for kind, t in types.items():
+        log(f"int8 conv {kind} x{t['x']} w{t['w']}: kernel {t['kernel_ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f}, im2col + _int_mm {t['library_ms']:.4f} (bitwise "
+            f"{t['library_bitwise']}), bf16 conv (not the same function) {t['bf16_conv_ms']:.4f}, "
+            f"bound {t['bound_ms']:.4f} ({t['bound_by']}); kernel/bound "
+            f"{t['kernel_ms'] / t['bound_ms']:.2f}; quantise f32 {t['quantise_ms_float32']:.4f}"
+            f" / bf16 {t['quantise_ms_bfloat16']:.4f} ms")
+    log("int8 conv per n=64 decode (10 sites): " + ", ".join(
+        f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in per_decode.items()))
+    log(f"phase 18a ok: {len(sites)} sites (f32 and bf16 codes) and {len(ragged)} ragged "
+        "shapes bitwise equal to the plain version, repeats bitwise equal")
+    return {"sites": sites, "types": types, "per_decode": per_decode, "ragged": ragged}
+
+
+def _serve_requests(torch, engine, body: bytes, h: int, w: int) -> tuple[dict, dict]:
+    """n = 8, 32, 64 over HTTP (npy, REPS each, no coalescing) and
+    ``/healthz``: -> ({n: latencies ms}, health)."""
+    from one_to_many_gan_torch.serve import make_server
+
+    server = make_server(engine, "127.0.0.1", 0, max_batch=1)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        lat = {}
+        for n in BUCKETS:
+            lat[n] = []
+            for rep in range(REPS):
+                payload, ms = _post(port, body, n=n, seed=rep, format="npy")
+                _check_out(_npy(payload), n, h, w)
+                lat[n].append(ms)
+        health = _get(port, "/healthz")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    return lat, health
+
+
+def _psnr(a: np.ndarray, b: np.ndarray) -> float:
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return 10 * np.log10(4.0 / max(mse, 1e-12))
+
+
+def phase_int8_serve(torch, config, source: np.ndarray) -> dict:
+    """18b: int8 engines at CONFIG in float32 and bfloat16 over HTTP beside
+    the float engines; the launches of the int8 path; images against the
+    float32 engine's. 18c: the int8 engine on the card against the CPU."""
+    from one_to_many_gan_torch.core import Models, make_inference_fns
+    from one_to_many_gan_torch.ops.cuda import fused_instance_norm, int8_conv_codes
+    from one_to_many_gan_torch.serve import InferenceEngine
+
+    h, w = config["data"]["image_size"]
+    body = _png(source)
+    engines = {}
+    for precision in ("float32", "bfloat16"):
+        cfg = copy.deepcopy(config)
+        cfg["tpu"]["precision"] = precision
+        for int8 in (True, False):
+            engine = InferenceEngine(cfg, buckets=BUCKETS, int8=int8)
+            engine.warmup(batched=False)
+            engines[precision + ("_int8" if int8 else "")] = engine
+    # the main path: int8 requests over HTTP, the counts read around them
+    int8_conv_codes.launches = fused_instance_norm.launches = 0
+    for name in ("float32_int8", "bfloat16_int8"):
+        engines[name].device_calls = 0
+    latency, health = {}, {}
+    for name in ("float32_int8", "bfloat16_int8"):
+        latency[name], health[name] = _serve_requests(torch, engines[name], body, h, w)
+    launches = {"int8_conv": int8_conv_codes.launches,
+                "instance_norm": fused_instance_norm.launches}
+    calls = sum(engines[k].device_calls for k in ("float32_int8", "bfloat16_int8"))
+    for name in ("float32", "bfloat16"):
+        latency[name], health[name] = _serve_requests(torch, engines[name], body, h, w)
+    check(calls > 0 and launches["int8_conv"] == INT8_SITES_PER_DECODE * calls,
+          f"int8 launches {launches['int8_conv']} for {calls} device calls (want 10 a call)")
+    check(launches["instance_norm"] == 9 * calls,
+          f"IN launches {launches['instance_norm']} for {calls} device calls (want 9 a call)")
+    for name in ("float32_int8", "bfloat16_int8"):
+        check(health[name]["int8"] is True and health[name]["device"].startswith("cuda"),
+              f"/healthz {health[name]}")
+    for name in ("float32", "bfloat16"):
+        check(health[name]["int8"] is False, f"/healthz {health[name]}")
+    medians = {name: {n: statistics.median(t) for n, t in lat.items()}
+               for name, lat in latency.items()}
+    for name, med in medians.items():
+        log(f"{name:14s} npy median ms " + ", ".join(f"n={n} {v:.2f}" for n, v in med.items()))
+    # images against the float32 engine's
+    want = engines["float32"].generate(source, BUCKETS[-1], seed=0)
+    levels, psnr = {}, {}
+    inputs = _fixed_inputs(torch, source, engines["float32"].models.w_dim, INT8_CPU_N)
+    ref = make_inference_fns(engines["float32"].models)[2](*inputs).float().cpu().numpy()
+    for name in ("float32_int8", "bfloat16_int8", "bfloat16"):
+        got = engines[name].generate(source, BUCKETS[-1], seed=0)
+        levels[name] = float(np.abs(got.astype(int) - want.astype(int)).mean())
+        out = make_inference_fns(engines[name].models)[2](*inputs).float().cpu().numpy()
+        psnr[name] = _psnr(out, ref)
+    log("against the float32 engine (n=64, seed 0): mean |delta| uint8 levels "
+        + ", ".join(f"{k} {v:.4f}" for k, v in levels.items()) + f" (limit {INT8_MEAN_LEVELS}); "
+        "tanh PSNR dB " + ", ".join(f"{k} {v:.2f}" for k, v in psnr.items()))
+    for name in ("float32_int8", "bfloat16_int8"):
+        check(levels[name] < INT8_MEAN_LEVELS and psnr[name] > INT8_PSNR_FLOOR,
+              f"{name} images {levels[name]} levels, {psnr[name]} dB from float32's")
+    card_models = engines["float32_int8"].models
+    del engines
+    torch.cuda.empty_cache()
+    log(f"phase 18b ok: int8 serving over HTTP, {calls} device calls with "
+        f"{launches['int8_conv']} int8 and {launches['instance_norm']} IN launches, "
+        "/healthz int8 true")
+    # 18c: the same int8 engine on the card and on the CPU, n = INT8_CPU_N
+    from one_to_many_gan_torch.ops.quantize import int8_conv, quantize_activations
+
+    cpu_models = Models(config, device="cpu", seed=0, int8_decode=True)
+    outs, taps = {}, {}
+    t0 = time.perf_counter()
+    for where, models in (("card", card_models), ("cpu", cpu_models)):
+        seen: list = []
+        with int8_sites(seen):
+            outs[where] = make_inference_fns(models)[2](*inputs).float().cpu().numpy()
+        taps[where] = [(x.cpu(), w.cpu()) for x, w in seen]
+        del seen
+    cpu_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        same = [torch.equal(int8_conv(x.cuda(), w.cuda()).cpu(), int8_conv(x, w))
+                for x, w in taps["cpu"]]
+    flips = [int((quantize_activations(a)[0] != quantize_activations(b)[0]).sum())
+             for (a, _), (b, _) in zip(taps["card"], taps["cpu"], strict=True)]
+    sizes = [x.numel() for x, _ in taps["card"]]
+    del taps
+
+    def u8(a):
+        return np.clip((a + 1.0) * 127.5, 0, 255).astype(np.uint8).astype(int)
+
+    cpu_levels = float(np.abs(u8(outs["card"]) - u8(outs["cpu"])).mean())
+    cpu_psnr = _psnr(outs["card"], outs["cpu"])
+    log(f"int8 card vs CPU (n={INT8_CPU_N}, float32, TF32 off): mean |delta| "
+        f"{cpu_levels:.4f} uint8 levels (limit {INT8_MEAN_LEVELS}), tanh PSNR {cpu_psnr:.2f} dB "
+        f"(floor {INT8_PSNR_FLOOR}); flipped codes per site {flips} of {sizes}; the card's "
+        f"int8 conv on the CPU's inputs bitwise the CPU's at {sum(same)} of {len(same)} "
+        f"sites; both passes {cpu_s:.1f} s")
+    check(np.isfinite(outs["card"]).all() and outs["card"].shape == (INT8_CPU_N, h, w, 1),
+          "int8 card output")
+    check(all(same), f"the card's int8 conv differs from the CPU's on the same inputs: {same}")
+    check(flips[0] <= INT8_FIRST_SITE_FLIPS * sizes[0],
+          f"{flips[0]} of {sizes[0]} codes flipped at the first int8 site")
+    check(cpu_levels < INT8_MEAN_LEVELS and cpu_psnr > INT8_PSNR_FLOOR,
+          "the int8 engine on the card is further from the CPU's than int8 from float32")
+    log("phase 18 ok")
+    return {"latency_ms": latency, "median_ms": medians, "launches": launches,
+            "device_calls": calls, "healthz": health, "mean_levels_vs_f32": levels,
+            "psnr_vs_f32": psnr,
+            "card_vs_cpu": {"mean_levels": cpu_levels, "psnr": cpu_psnr,
+                            "flipped_codes": flips, "codes": sizes, "same_inputs_bitwise": same}}
 
 
 def main() -> int:
@@ -3268,6 +3605,9 @@ def main() -> int:
     report["slice7"] = phase_slice7(torch, report["production"])
     torch.cuda.empty_cache()
     report["data_parallel"] = phase_data_parallel(torch)
+    torch.cuda.empty_cache()
+    report["int8_kernel"] = phase_int8_kernel(torch, config, source)
+    report["int8_serve"] = phase_int8_serve(torch, config, source)
 
     fused = report["fused_step"]["launches"]
     enc = report["kernels"]["per_encode"]["float32_b1"]
@@ -3286,7 +3626,8 @@ def main() -> int:
                    "fused step (phase 11)": fused["instance_norm"],
                    "Trainer (phase 14)": trained["instance_norm"],
                    "production Trainer (phase 15)": prod["instance_norm"],
-                   **{k: v["instance_norm"] for k, v in s7.items()}}
+                   **{k: v["instance_norm"] for k, v in s7.items()},
+                   "int8 serving (phase 18b)": report["int8_serve"]["launches"]["instance_norm"]}
     kernels = [{
         "name": "instance_norm",
         "route": "cuda",
@@ -3378,6 +3719,33 @@ def main() -> int:
                               "production Trainer (phase 15)": prod["warp_bwd"],
                               **{k: v["warp_bwd"] for k, v in s7.items()}},
         "checked_in": "phases 10 and 16a",
+    })
+    i8, i8_types = report["int8_kernel"]["per_decode"], report["int8_kernel"]["types"]
+    kernels.append({
+        "name": "int8_conv",
+        "route": "cuda",
+        "source": "one_to_many_gan_torch/csrc/int8_conv.cu",
+        "replaces": INT8_REPLACES,
+        "launches": report["int8_serve"]["launches"]["int8_conv"],
+        "max_abs_err": max(s["max_abs_err"] for s in report["int8_kernel"]["sites"]),
+        "ms": i8["kernel_ms"],
+        "plain_ms": i8["plain_ms"],
+        "bound_ms": i8["bound_ms"],
+        "bound_by": i8["bound_by"],
+        "library_ms": i8["library_ms"],
+        "per": "the 10 int8 convs of one n=64 decode of configs/default.toml (the resnet-block "
+               "site timed once, counted 8 times), one call each, cold L2; library: im2col "
+               "(Tensor.unfold, materialised) + torch._int_mm + the same rescale",
+        "bf16_conv_ms_not_the_same_function": i8["bf16_conv_ms"],
+        "quantise_ms_per_decode": {"float32": i8["quantise_ms_float32"],
+                                   "bfloat16": i8["quantise_ms_bfloat16"]},
+        "by_site_type": {k: {key: t[key] for key in ("x", "w", "kernel_ms", "plain_ms",
+                                                     "library_ms", "bf16_conv_ms", "bound_ms",
+                                                     "bound_by")}
+                         for k, t in i8_types.items()},
+        "launches_by_phase": {"int8 serving (phase 18b)":
+                              report["int8_serve"]["launches"]["int8_conv"]},
+        "checked_in": "phase 18a",
     })
     report["wall_s"] = time.perf_counter() - t_start
     log(f"chip_smoke wall time {report['wall_s']:.1f} s")

@@ -11,9 +11,11 @@ defaults are filled in below. Of ``[tpu]`` the port reads ``precision``
 ``check_training_options`` refuses ``spatial_parallel > 1``, which the
 port does not run yet. ``ada_pallas`` chooses between two TPU
 implementations of the ADA warp; the port always computes the Pallas
-kernel's numerics, so it ignores the key; ``compilation_cache_dir`` is a
-JAX compile cache, also ignored. The other keys are validated so that
-one file configures both packages.
+kernel's numerics, so it ignores the key; ``s2d_pack`` repacks the
+low-channel 3x3 convs space-to-depth for the TPU's matrix unit, the same
+conv (which the JAX package holds exact), so the port ignores it too;
+``compilation_cache_dir`` is a JAX compile cache, also ignored. The other
+keys are validated so that one file configures both packages.
 """
 
 from __future__ import annotations

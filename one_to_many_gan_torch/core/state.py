@@ -47,11 +47,14 @@ class Models:
     turns TF32 off for the process (``device.disable_tf32``);
     ``training.deterministic_cuda_kernels = true`` makes the process's
     kernels deterministic (``device.use_deterministic_kernels``), so that
-    two runs from one seed give the same bits.
+    two runs from one seed give the same bits. ``int8_decode`` builds the
+    generator with its decoder's modulated convs on int8 codes, for serving
+    and generation only (training refuses it, ``core/train_step.py``); its
+    parameters are the float generator's, so the same weights load.
     """
 
     def __init__(self, config: Config, *, device: str | torch.device | None = None,
-                 seed: int = 0):
+                 seed: int = 0, int8_decode: bool = False):
         arch = config["architecture"]
         data = config["data"]
         self.device = select_device(device)
@@ -72,6 +75,7 @@ class Models:
                 min_latent_resolution=arch["min_latent_resolution"],
                 n_resnet_blocks=arch["n_resnet_blocks"],
                 dtype=self.dtype,
+                int8_decode=int8_decode,
             )
             self.mapping = MappingNetwork(
                 features=arch["w_dim"], n_layers=arch["mapping_network_layers"]
@@ -79,6 +83,7 @@ class Models:
         for module in (self.generator, self.mapping):
             module.requires_grad_(False).eval().to(self.device)
         self.n_style_blocks = self.generator.n_style_blocks
+        self.int8_decode = int8_decode
 
 
 def make_optimizers(

@@ -262,13 +262,23 @@ def r1_loss_and_grad(discriminator, aug_real: torch.Tensor, gamma: float) -> tor
     return loss.detach()
 
 
+def refuse_int8(models: Models) -> None:
+    """Raise for models built with ``int8_decode``: their decoder rounds its
+    operands to int8 codes, so no gradient flows through it (the JAX
+    package's ``make_train_step`` refuses them too)."""
+    if models.int8_decode:
+        msg = "int8_decode models cannot train; build Models(config) instead"
+        raise ValueError(msg)
+
+
 def make_d_phase(config: Config, models: Models, group=None):
     """-> ``d_phase(state, d_shoeprints, d_shoemarks, draws)``: one
     discriminator update on ``models.device``; ``state`` is updated in
     place and returned with the metrics ``disc_loss`` (with the R1 term on
     R1 steps), ``disc_real_acc``, ``disc_fake_acc`` and ``ada_p`` (the
     probability used). With ``group``: this rank's rows and the global
-    draws of the phase (``shard_draws``' D part)."""
+    draws of the phase (``shard_draws``' D part). Refuses int8 models."""
+    refuse_int8(models)
     d_inputs = make_d_inputs(config, models, group)
     ckpt_d = make_ckpt(_remat_modes(config)[1])
     r1_gamma = config["tpu"]["r1_gamma"]
@@ -497,7 +507,8 @@ def make_g_phase(config: Config, models: Models, group=None):
     ``identity_loss``, ``kl_loss``, ``style_loss`` and ``path_loss`` (the
     raw path term on path steps, 0 on the others). With ``group``, the
     gradients and the metrics (but ``kl_loss``, global already) are
-    averaged over the ranks before the Adams."""
+    averaged over the ranks before the Adams. Refuses int8 models."""
+    refuse_int8(models)
     g_loss_and_grad = make_g_loss(config, models, group)
     interval = config["tpu"]["path_interval"]
     decay = config["tpu"]["ema_decay"]
@@ -574,7 +585,8 @@ def make_train_step(config: Config, models: Models, group=None):
     metrics of both phases. With ``group`` (``parallel.DataParallel``),
     ``batches`` are this rank's rows of the global batch and ``draws``
     the global step's (``draw_step`` at the config's batch size, the same
-    on every rank); the metrics are the global step's."""
+    on every rank); the metrics are the global step's. Refuses int8 models
+    (through its phases)."""
     d_phase = make_d_phase(config, models, group)
     g_phase = make_g_phase(config, models, group)
 

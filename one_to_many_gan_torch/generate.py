@@ -2,7 +2,7 @@
 
     python -m one_to_many_gan_torch.generate config.toml \
         --source path/to/shoeprint.png --n 64 --out out_dir \
-        [--artifact model.npz] [--seed 0] [--theta 1.0] [--device cpu]
+        [--artifact model.npz] [--seed 0] [--theta 1.0] [--device cpu] [--int8]
 
 Generates with an inference artifact (``--artifact``: ``export.py``'s,
 or the JAX package's) or else with the configured run's latest
@@ -11,6 +11,8 @@ one); without either, with fresh weights from ``--seed`` and a warning.
 Encodes the source once and decodes all N styles in one batched call on
 the device (``cuda`` unless ``--device cpu``; raises without a GPU). The
 style draws come from ``torch.Generator(device).manual_seed(seed)``.
+``--int8`` decodes with the modulated convs on int8 codes (``serve.py``'s
+int8 serving; the same weights).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ def generate(
     theta: float = 1.0,
     artifact: str | None = None,
     device: str | None = None,
+    int8: bool = False,
 ) -> list[Path]:
     import torch
     from PIL import Image
@@ -44,7 +47,7 @@ def generate(
     from one_to_many_gan_torch.migrate import latest_checkpoint, load_inference_weights
 
     config = load_config(config_path)
-    models = Models(config, device=device, seed=seed)
+    models = Models(config, device=device, seed=seed, int8_decode=int8)
     if artifact is not None:
         params_g, params_m, step, _ema = load_inference_artifact(artifact)
         from_jax_params(models, params_g, params_m)
@@ -95,9 +98,15 @@ def main(argv: list[str] | None = None) -> None:
         "checkpoint, or fresh weights from --seed when it has none",
     )
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument(
+        "--int8",
+        action="store_true",
+        help="run the decoder's modulated convs on int8 codes (the int8 conv "
+        "kernel on the card's tensor cores); the same weights",
+    )
     args = ap.parse_args(argv)
     generate(args.config, args.source, args.n, args.out, args.seed, args.theta,
-             artifact=args.artifact, device=args.device)
+             artifact=args.artifact, device=args.device, int8=args.int8)
 
 
 if __name__ == "__main__":

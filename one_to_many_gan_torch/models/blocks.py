@@ -5,7 +5,7 @@
   norms run the CUDA kernel (the first with its fused ReLU).
 - ``ModulatedResnetBlock``: reflect-pad 1 -> modulated conv3 -> ReLU ->
   reflect-pad 1 -> modulated conv3, residual add; the SAME style vector w
-  feeds both convs.
+  feeds both convs (``int8``: both on int8 codes, inference only).
 """
 
 from __future__ import annotations
@@ -34,10 +34,13 @@ class ResnetBlock(nn.Module):
 
 
 class ModulatedResnetBlock(nn.Module):
-    def __init__(self, dim: int, w_dim: int, *, dtype: torch.dtype = torch.float32):
+    def __init__(self, dim: int, w_dim: int, *, dtype: torch.dtype = torch.float32,
+                 int8: bool = False):
         super().__init__()
-        self.conv0 = ModulatedConv(dim, dim, w_dim, padding=1, pad_mode="reflect", dtype=dtype)
-        self.conv1 = ModulatedConv(dim, dim, w_dim, padding=1, pad_mode="reflect", dtype=dtype)
+        self.conv0 = ModulatedConv(dim, dim, w_dim, padding=1, pad_mode="reflect", dtype=dtype,
+                                   int8=int8)
+        self.conv1 = ModulatedConv(dim, dim, w_dim, padding=1, pad_mode="reflect", dtype=dtype,
+                                   int8=int8)
 
     def forward(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         y = relu(self.conv0(x, w))

@@ -11,7 +11,10 @@ Decoder (one style vector per *style block*):
 
 Every instance norm of the encoder (1 + n_downsamples + 2 per resnet
 block: 9 at the shipped config) runs the CUDA kernel through
-``fused_instance_norm``, ReLU fused where one follows.
+``fused_instance_norm``, ReLU fused where one follows. ``int8_decode``
+(inference only) runs the decoder's modulated convs on int8 codes
+(``ops/quantize.py``; 10 at the shipped config) with the same parameters,
+so checkpoints and artifacts load unchanged.
 
 ``extract`` returns the feature map after each style block: after each
 modulated resnet block's residual add, and after each upsample-stage
@@ -58,6 +61,7 @@ class Generator(nn.Module):
         *,
         start_filters: int = 64,
         dtype: torch.dtype = torch.float32,
+        int8_decode: bool = False,
     ):
         super().__init__()
         n_down, n_enc, n_dec, n_style = generator_arithmetic(
@@ -76,11 +80,12 @@ class Generator(nn.Module):
         self.latent_features = f
 
         self.dec_blocks = nn.ModuleList(
-            ModulatedResnetBlock(f, w_dim, dtype=dtype) for _ in range(n_dec)
+            ModulatedResnetBlock(f, w_dim, dtype=dtype, int8=int8_decode) for _ in range(n_dec)
         )
         dec_up = []
         for _ in range(n_down):
-            dec_up.append(ModulatedConv(f, f // 2, w_dim, 3, padding=1, dtype=dtype))
+            dec_up.append(ModulatedConv(f, f // 2, w_dim, 3, padding=1, dtype=dtype,
+                                        int8=int8_decode))
             f //= 2
         self.dec_up = nn.ModuleList(dec_up)
         self.out_conv = EqualizedConv(f, channels, 7, padding=3, pad_mode="reflect", dtype=dtype)

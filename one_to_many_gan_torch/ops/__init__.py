@@ -4,6 +4,7 @@ from one_to_many_gan_torch.ops.cuda import fused_instance_norm
 from one_to_many_gan_torch.ops.equalized import EqualizedConv, EqualizedLinear
 from one_to_many_gan_torch.ops.modulated import ModulatedConv
 from one_to_many_gan_torch.ops.norm import instance_norm, l2_normalize
+from one_to_many_gan_torch.ops.quantize import int8_conv, quantize_activations, quantize_weight
 from one_to_many_gan_torch.ops.resample import (
     bilinear_resize,
     blur3,
@@ -20,6 +21,9 @@ __all__ = [
     "downsample2x",
     "fused_instance_norm",
     "instance_norm",
+    "int8_conv",
     "l2_normalize",
+    "quantize_activations",
+    "quantize_weight",
     "upsample2x",
 ]

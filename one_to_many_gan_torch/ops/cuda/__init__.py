@@ -8,6 +8,7 @@ from one_to_many_gan_torch.ops.cuda.instance_norm import (
     fused_instance_norm,
     instance_norm_plain,
 )
+from one_to_many_gan_torch.ops.cuda.int8_conv import int8_conv_codes, int8_conv_plain
 from one_to_many_gan_torch.ops.cuda.warp import (
     warp,
     warp_bwd,
@@ -19,6 +20,8 @@ from one_to_many_gan_torch.ops.cuda.warp import (
 __all__ = [
     "fused_instance_norm",
     "instance_norm_plain",
+    "int8_conv_codes",
+    "int8_conv_plain",
     "warp",
     "warp_bwd",
     "warp_bwd_plain",

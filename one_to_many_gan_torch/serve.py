@@ -25,10 +25,18 @@ divide by k. The draws are made on the first replica's device, so the
 images equal one card's. Every replica encodes the sources again, so a
 small n can take longer on k cards than on one.
 
+Int8 serving (``InferenceEngine(int8=True)``, ``--int8``; the JAX
+engine's): every replica's decoder runs its modulated convs on int8 codes
+(``ops/quantize.py``: per-sample activation scales, per-output-channel
+weight scales, the conv on the card's int8 tensor cores through the
+kernel of ``csrc/int8_conv.cu``). The same checkpoints and artifacts
+load. With ``data_parallel = k`` each card quantises its own slice of the
+style batch; the scales are per sample, so its codes are one card's.
+
 API (stdlib ``http.server``):
 
 - ``GET /healthz`` -> ``{"status": "ok", "step": N, "ema": bool,
-  "data_parallel": k, ...}``
+  "data_parallel": k, "int8": bool, ...}``
 - ``GET /stats``   -> request count + latency percentiles (ms)
 - ``POST /generate?n=8&seed=0&theta=1.0`` with a PNG/JPEG body ->
   ``application/zip`` of ``n`` PNG shoemarks (``shoemark_0000.png``...)
@@ -42,7 +50,7 @@ API (stdlib ``http.server``):
 CLI:
     python -m one_to_many_gan_torch.serve config.toml [--artifact model.npz] \
         [--host 0.0.0.0] [--port 8000] [--buckets 8,32,64] [--device cpu] \
-        [--data-parallel k]
+        [--data-parallel k] [--int8]
 
 Without ``--artifact`` it serves the configured run's latest checkpoint
 (its EMA generator when it has one: ``/healthz`` then says ``"ema":
@@ -119,6 +127,8 @@ class InferenceEngine:
             (-1: every visible card; the CPU has one unless asked for
             more). Every n bucket must divide by it; more replicas than
             cards raise.
+        int8: decode with the modulated convs on int8 codes (module
+            docstring); inference only, the same weights.
     """
 
     def __init__(
@@ -131,6 +141,7 @@ class InferenceEngine:
         device=None,
         seed: int = 0,
         data_parallel: int = 1,
+        int8: bool = False,
     ):
         if not buckets or list(buckets) != sorted(set(buckets)):
             msg = f"buckets must be ascending and unique, got {buckets!r}"
@@ -147,7 +158,9 @@ class InferenceEngine:
             devices = [torch.device("cuda", i) for i in range(self.data_parallel)]
         else:
             devices = [dev] * self.data_parallel
-        self.replicas = [Models(config, device=d, seed=seed) for d in devices]
+        self.int8 = bool(int8)
+        self.replicas = [Models(config, device=d, seed=seed, int8_decode=self.int8)
+                         for d in devices]
         models = self.models = self.replicas[0]
         # one request on the device at a time; the HTTP layer is threaded
         self._lock = threading.Lock()
@@ -573,6 +586,7 @@ def make_handler(engine: InferenceEngine, stats: _Stats,
                         "device": str(engine.device),
                         "precision": engine.precision,
                         "data_parallel": engine.data_parallel,
+                        "int8": engine.int8,
                     },
                 )
             elif path == "/stats":
@@ -705,6 +719,14 @@ def main(argv: list[str] | None = None) -> None:
         "than on one card",
     )
     ap.add_argument(
+        "--int8",
+        action="store_true",
+        help="run the decoder's modulated convs on int8 codes (the int8 conv "
+        "kernel on the card's tensor cores); the same weights. One n=64 request of "
+        "configs/default.toml on an H100 at 700 W: float32 269 ms against 359 ms "
+        "without (1.33x); bfloat16 203 ms against 129 ms (0.64x, slower; PERF.md)",
+    )
+    ap.add_argument(
         "--max-batch",
         type=int,
         default=4,
@@ -742,9 +764,11 @@ def main(argv: list[str] | None = None) -> None:
         artifact=args.artifact,
         device=args.device,
         data_parallel=args.data_parallel,
+        int8=args.int8,
     )
     print(
-        f"serving step {engine.step} ({'EMA' if engine.ema else 'raw'} generator) "
+        f"serving step {engine.step} ({'EMA' if engine.ema else 'raw'} generator"
+        f"{', int8 decode' if engine.int8 else ''}) "
         f"on {engine.device} x {engine.data_parallel}; warming {len(engine.buckets)} buckets..."
     )
     warm_s = engine.warmup(batched=args.max_batch > 1, max_batch=args.max_batch)

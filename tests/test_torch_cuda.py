@@ -25,7 +25,9 @@ over the plane in different orders, and the closed form and autograd's
 chain of plain ops round differently; 1.2e-7 measured on the CPU) and at
 the JAX package's 0.05 in bfloat16 (autograd rounds every step of the
 plain chain to bfloat16; 0.016 measured on the CPU on gradients of
-magnitude 2).
+magnitude 2). The int8 conv is held to its plain version bitwise (integer
+sums are exact in any order; the rescale rounds alike), and two launches
+give the same bits.
 """
 
 import math
@@ -44,6 +46,8 @@ from one_to_many_gan_torch.augment.pipeline import (
 from one_to_many_gan_torch.ops.cuda import (
     fused_instance_norm,
     instance_norm_plain,
+    int8_conv_codes,
+    int8_conv_plain,
     warp,
     warp_bwd,
     warp_bwd_plain,
@@ -52,6 +56,12 @@ from one_to_many_gan_torch.ops.cuda import (
 )
 from one_to_many_gan_torch.ops.cuda import instance_norm as in_module
 from one_to_many_gan_torch.ops.cuda.warp import AA_MAX_WIDTH, RADIUS
+from one_to_many_gan_torch.ops.quantize import (
+    int8_conv,
+    kernel_operands,
+    quantize_activations,
+    quantize_weight,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -545,3 +555,69 @@ def test_warp_bwd_raises_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="width_x must be float32"):
         warp_bwd(dout, sx, sy, ones[:1], ones, antialias=True)
     assert warp_bwd.launches == before
+
+
+# ------------------------------------------------------------ the int8 conv
+
+
+def _int8_codes(gen, b, c, hp, wp, o, dtype=torch.float32, k=3):
+    x = torch.randn((b, c, hp, wp), generator=gen, device="cuda").to(dtype)
+    return kernel_operands(x, torch.randn((o, c, k, k), generator=gen, device="cuda") * 0.05)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    ("b", "c", "hp", "wp", "o", "k"),
+    [
+        (1, 32, 5, 7, 8, 3),  # C = 32, one block, most of it out of range
+        (2, 64, 19, 23, 70, 3),  # M and O no multiple of the tile (O > 64: 128-wide tiles)
+        (3, 32, 11, 40, 129, 3),  # O one past a tile
+        (1, 128, 34, 18, 64, 3),  # the 64-wide tile
+        (2, 256, 10, 10, 256, 3),  # the decoder's resnet width
+        (2, 64, 9, 9, 16, 1),  # a 1x1 conv
+    ],
+)
+def test_int8_conv_kernel_is_the_plain_version_bitwise(cuda, b, c, hp, wp, o, k, dtype):
+    """Integer sums are exact in any order and the rescale rounds as the
+    plain version's: the kernel's output is bitwise equal to it."""
+    codes = _int8_codes(cuda, b, c, hp, wp, o, dtype, k)
+    before = int8_conv_codes.launches
+    got = int8_conv_codes(*codes)
+    again = int8_conv_codes(*codes)
+    want = int8_conv_plain(*codes)
+    torch.cuda.synchronize()
+    assert int8_conv_codes.launches == before + 2
+    assert got.shape == want.shape == (b, o, hp - k + 1, wp - k + 1)
+    assert torch.equal(got, want) and torch.equal(got, again)
+
+
+def test_int8_conv_on_the_card_is_the_cpu_plain_version(cuda):
+    """The float API on the card (quantise, channels-last codes, the kernel)
+    against the CPU's plain path on the same inputs, scales and codes
+    first: the scales are divisions on both (a division by a Python number
+    on the card multiplies by a rounded reciprocal, one ulp off for some
+    of these 64 samples and 128 channels)."""
+    x = torch.randn((64, 32, 12, 10), generator=cuda, device="cuda")
+    x = x * torch.rand((64, 1, 1, 1), generator=cuda, device="cuda") * 10
+    w = torch.randn((128, 32, 3, 3), generator=cuda, device="cuda") * 0.1
+    for fn, t in ((quantize_activations, x), (quantize_weight, w)):
+        for got, want in zip(fn(t), fn(t.cpu()), strict=True):
+            assert torch.equal(got.cpu(), want)
+    assert torch.equal(int8_conv(x, w).cpu(), int8_conv(x.cpu(), w.cpu()))
+
+
+def test_int8_conv_raises_instead_of_falling_back(cuda):
+    xq, wq, xs, ws = _int8_codes(cuda, 2, 64, 8, 8, 16)
+    before = int8_conv_codes.launches
+    with pytest.raises(ValueError, match="multiples of 32"):
+        int8_conv_codes(*_int8_codes(cuda, 2, 48, 8, 8, 16))
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_conv_codes(xq.transpose(1, 2), wq, xs, ws)
+    with pytest.raises(TypeError, match="int8"):
+        int8_conv_codes(xq.float(), wq, xs, ws)
+    with pytest.raises(ValueError, match="tensors on"):
+        int8_conv_codes(xq, wq, xs.cpu(), ws)
+    misaligned = torch.empty(xq.numel() + 1, dtype=torch.int8, device="cuda")[1:]
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        int8_conv_codes(misaligned.view(xq.shape), wq, xs, ws)
+    assert int8_conv_codes.launches == before

@@ -20,6 +20,8 @@ At ``tests/helpers.write_tiny_config``'s size (32x32, batch 2):
 - ``split_phases``: a Trainer run equals the fused run in groups of 2,
   bit for bit; and a run paused and resumed with EMA and R1 on equals
   the uninterrupted one, bit for bit;
+- ``tpu.s2d_pack`` (a TPU repacking the port ignores): one step with it
+  equals one step without it;
 - the one-card copy of ``configs/tpu_v5e8_512.toml``.
 """
 
@@ -398,6 +400,22 @@ def test_resume_with_ema_and_r1_is_exact(tmp_path):
     resumed = _run(paused)
     assert resumed["step"] == whole["step"] == 4 and EMA_KEY in whole
     assert _equal(resumed, whole) > 0
+
+
+def test_s2d_pack_loads_and_trains_as_without_it(tmp_path):
+    """``tpu.s2d_pack`` is the TPU's space-to-depth repacking of the same
+    3x3 convs; the port reads the key and ignores it: one step from seed 0
+    gives the same metrics, bit for bit."""
+    metrics = {}
+    for flag in ("false", "true"):
+        config = _config(tmp_path / flag, f"\n[tpu]\ns2d_pack = {flag}\n")
+        assert config["tpu"]["s2d_pack"] is (flag == "true")
+        models, state, gen = port_train.setup(config, seed=0, ada_p=0.6, device="cpu")
+        train_step = port_ts.make_train_step(config, models)
+        _, step_metrics = port_train.run_step(config, models, state, train_step, gen)
+        metrics[flag] = {k: v.item() for k, v in step_metrics.items()}
+    assert metrics["true"] == metrics["false"]
+    assert all(np.isfinite(v) for v in metrics["true"].values())
 
 
 # --------------------------------------------------------- one-card config
