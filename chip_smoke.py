@@ -139,20 +139,22 @@ started together), then runs, in order:
    norms), the collectives' device time in one step's profile, and the
    all-reduce of each optimiser's gradient buffer timed with its bytes;
 18. int8 serving (``--int8``) at ``configs/default.toml``: (a) the int8
-   conv kernel at the 10 sites of an n = 64 decode, on the codes of the
-   float32 and the bfloat16 decode's activations, and at ragged shapes,
-   bitwise equal to its plain version and to a second launch, with the
-   kernel's, the plain version's, the library route's (im2col and
-   ``torch._int_mm``), a bfloat16 cuDNN conv's (not the same function) and
-   the bound's times per site type and the quantise step's; (b) int8
-   engines in float32 and bfloat16 over HTTP (n = 8, 32, 64, npy, median
-   of 3) beside the float engines, 10 int8 and 9 instance-norm launches a
-   device call, ``/healthz`` ``"int8": true``, images against the float32
-   engine's (mean |delta| in uint8 levels, tanh PSNR); (c) the int8
-   engine on the card against the CPU at n = 8: the card's int8 conv on
-   the CPU's inputs of every site bitwise the CPU's, the images as far
-   apart as int8 and float32 may be, the flipped codes of every site
-   counted.
+   pre-pass and the fused modulated int8 conv at the 10 sites of an
+   n = 64 decode (their real inputs: unpadded activations, style, weight
+   codes, demodulation, pad mode) in float32 and bfloat16, and at ragged
+   shapes in both pad modes (and unmodulated, unpadded), bitwise equal to
+   their plain versions and to a second launch, with the kernels', the
+   plain versions', the yardstick's (the site as torch passes, im2col and
+   ``torch._int_mm``), the bound's and the codes-only bound's times per
+   site type and per decode, and a bfloat16 cuDNN conv's of the codes
+   (not the same function); (b) int8 engines in float32 and bfloat16 over
+   HTTP (n = 8, 32, 64, npy, median of 3) beside the float engines, 10
+   pre-pass, 10 fused conv and 9 instance-norm launches a device call,
+   ``/healthz`` ``"int8": true``, images against the float32 engine's
+   (mean |delta| in uint8 levels, tanh PSNR); (c) the int8 engine on the
+   card against the CPU at n = 8: the card's int8 kernels on the CPU's
+   inputs of every site bitwise the CPU's, the images as far apart as
+   int8 and float32 may be, the flipped codes of every site counted.
    Four cards: ``scripts/multi_card_smoke.py``.
 
 Any failed check raises, and the script exits non-zero. Before its last
@@ -407,12 +409,17 @@ S_NATIVE_STEPS = 2
 INT8_SITES_PER_DECODE = 10
 INT8_SITE_TYPES = {"resnet": 0, "up1": 8, "up2": 9}
 INT8_REPLACES = ("no Pallas kernel: XLA's int8 conv_general_dilated at ops/quantize.py:79-89 "
-                 "of the JAX package")
+                 "of the JAX package, with the modulation, pad and quantisation before it "
+                 "(ops/modulated.py:105-106, ops/quantize.py:53-64) and the cast and "
+                 "demodulation after it (ops/modulated.py:111, 129)")
+INT8_PREPASS_REPLACES = ("no Pallas kernel: the per-sample amax and scale of XLA's "
+                         "quantize_activations at ops/quantize.py:58-60 of the JAX package")
 INT8_TIMING_REPS = 5
-# Ragged shapes (B, C, Hp, Wp, O): pixels and channels off the 128 x 128 /
-# 128 x 64 tiles, C = 32 and 64.
-INT8_RAGGED = ((1, 32, 5, 7, 8), (2, 64, 19, 23, 70), (3, 32, 11, 40, 129),
-               (1, 128, 34, 18, 64))
+# Ragged shapes (B, C, H, W, O), unpadded: odd H and W, rows and columns
+# off the fused kernel's tiles (2, 4 or 8 rows of 64 columns), O off its N
+# tiles (64, 128, 256; 300 takes two), C = 32 to 128.
+INT8_RAGGED = ((1, 32, 3, 5, 8), (2, 64, 17, 21, 70), (3, 32, 9, 38, 129), (1, 128, 32, 16, 64),
+               (2, 32, 9, 131, 40), (2, 64, 12, 128, 300))
 # int8 against float32 images: mean |delta| in uint8 levels, the JAX
 # package's bound (tests/test_int8.py).
 INT8_MEAN_LEVELS = 4.0
@@ -427,8 +434,8 @@ INT8_MEAN_LEVELS = 4.0
 # far from the float32 one. So the images are held as int8 is held to
 # float32: mean |delta| under INT8_MEAN_LEVELS uint8 levels and a tanh
 # PSNR above INT8_PSNR_FLOOR (the JAX package's tests/test_int8.py); and
-# the card's int8 conv (quantise, layout, kernel) on the CPU's inputs of
-# every site is bitwise the CPU's.
+# the card's int8 kernels (pre-pass, fused conv) on the CPU's inputs of
+# every site are bitwise the CPU's.
 INT8_FIRST_SITE_FLIPS = 1e-3
 INT8_PSNR_FLOOR = 30.0
 INT8_CPU_N = 8
@@ -3277,59 +3284,171 @@ def phase_data_parallel(torch) -> dict:
 
 @contextlib.contextmanager
 def int8_sites(seen: list):
-    """Record ``(x, w)``, the padded float input and the weight, of every
-    int8 conv of the decoder (``ops/modulated.py``'s call of
-    ``ops/quantize.int8_conv``), in call order, and run the conv."""
+    """Record the inputs of every int8 site of the decoder
+    (``ops/modulated.py``'s call of ``modulated_int8_conv``), in call order,
+    as dicts of its arguments (``x`` unpadded, ``s``, ``w_q``, ``w_scale``,
+    ``d``, ``padding``, ``pad_mode``, ``dtype``), and run the site."""
     from one_to_many_gan_torch.ops import modulated
 
-    real = modulated.int8_conv
+    real = modulated.modulated_int8_conv
 
-    def tap(x, w):
-        seen.append((x, w))
-        return real(x, w)
+    def tap(x, s, w_q, w_scale, d, **kw):
+        seen.append({"x": x, "s": s, "w_q": w_q, "w_scale": w_scale, "d": d, **kw})
+        return real(x, s, w_q, w_scale, d, **kw)
 
-    modulated.int8_conv = tap
+    modulated.modulated_int8_conv = tap
     try:
         yield seen
     finally:
-        modulated.int8_conv = real
+        modulated.modulated_int8_conv = real
 
 
-def int8_library(torch, xq, wq, xs, ws):
-    """The yardstick, never on the path: im2col (the 9 taps materialised)
-    and ``torch._int_mm``, then the same rescale."""
+def site_padded(site: dict):
+    """The modulated, padded tensor that an int8 site quantises."""
+    from one_to_many_gan_torch.ops.cuda.int8_conv import modulate_plain
+    from one_to_many_gan_torch.ops.equalized import pad2d
+
+    return pad2d(modulate_plain(site["x"], site["s"], site["dtype"]), site["padding"],
+                 site["pad_mode"])
+
+
+def int8_run(site: dict, plain: bool = False):
+    """The int8 site through the kernels (or, ``plain``, their plain
+    versions): ``modulated_int8_conv`` of its recorded arguments."""
+    from one_to_many_gan_torch.ops.cuda import int8_conv
+
+    fn = int8_conv.modulated_int8_conv_plain if plain else int8_conv.modulated_int8_conv
+    return fn(site["x"], site["s"], site["w_q"], site["w_scale"], site["d"],
+              padding=site["padding"], pad_mode=site["pad_mode"], dtype=site["dtype"])
+
+
+def random_sites(torch, gen, b: int, c: int, h: int, w: int, o: int) -> list:
+    """Int8 sites of shape (B, C, H, W) -> O from ``gen``: float32 and
+    bfloat16, zero and reflection padding, and (where H, W >= 3) the
+    unmodulated, unpadded float32 case of ``ops/quantize.int8_conv``."""
+    from one_to_many_gan_torch.ops.quantize import quantize_weight
+
+    x = torch.randn((b, c, h, w), generator=gen, device="cuda")
+    s = torch.randn((b, c), generator=gen, device="cuda")
+    d = torch.rand((b, o), generator=gen, device="cuda") + 0.5
+    w_q, w_scale = quantize_weight(torch.randn((o, c, 3, 3), generator=gen, device="cuda") * 0.05)
+    sites = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for pad_mode in ("zero", "reflect"):
+            sites.append({"x": x.to(dtype), "s": s, "w_q": w_q, "w_scale": w_scale, "d": d,
+                          "padding": 1, "pad_mode": pad_mode, "dtype": dtype})
+        if min(h, w) >= 3:
+            sites.append({"x": x.to(dtype), "s": None, "w_q": w_q, "w_scale": w_scale, "d": None,
+                          "padding": 0, "pad_mode": "zero", "dtype": torch.float32})
+    return sites
+
+
+def site_on(site: dict, device) -> dict:
+    """The site's tensors on ``device``."""
+    return {k: v.to(device) if hasattr(v, "device") else v for k, v in site.items()}
+
+
+def int8_library(torch, site: dict):
+    """The yardstick, never on the path: the site as plain torch passes
+    (modulate, pad, quantise, channels-last codes), im2col (the 9 taps
+    materialised) and ``torch._int_mm``, then the rescale, the cast and
+    the demodulation."""
+    from one_to_many_gan_torch.ops.quantize import quantize_activations
+
+    xq, xs = quantize_activations(site_padded(site))
+    xq = xq.permute(0, 2, 3, 1).contiguous()
+    wq = site["w_q"].permute(0, 2, 3, 1).contiguous()
     b, hp, wp, c = xq.shape
     o, kh, kw, _ = wq.shape
     ho, wo = hp - kh + 1, wp - kw + 1
     cols = xq.unfold(1, kh, 1).unfold(2, kw, 1).permute(0, 1, 2, 4, 5, 3)
     y32 = torch._int_mm(cols.reshape(b * ho * wo, kh * kw * c), wq.reshape(o, -1).t())
     y = y32.view(b, ho, wo, o).permute(0, 3, 1, 2).to(torch.float32)
-    return y * (xs[:, None, None, None] * ws[None, :, None, None])
+    y = (y * (xs[:, None, None, None] * site["w_scale"][None, :, None, None])).to(site["dtype"])
+    return y * site["d"][:, :, None, None].to(site["dtype"])
 
 
-def int8_bound_ms(xq_shape, wq_shape) -> tuple[float, str]:
-    """The least time of one int8 conv on the card: the larger of its
-    2*M*N*K operations at the dense int8 rate and its bytes (codes and
-    scales read once, the float32 output written once) at the memory
-    rate. -> (ms, "operations" or "bytes")."""
-    b, hp, wp, c = xq_shape
-    o, kh, kw, _ = wq_shape
-    m = b * (hp - kh + 1) * (wp - kw + 1)
-    ops = 2.0 * m * o * kh * kw * c
-    nbytes = b * hp * wp * c + o * kh * kw * c + 4 * (b + o) + 4 * m * o
+def _bound(ops: float, nbytes: float) -> tuple[float, str]:
     t_ops, t_bytes = ops / INT8_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def int8_bound_ms(xq_shape, wq_shape) -> tuple[float, str]:
+    """The least time of an int8 conv of codes alone: the larger of its
+    2*M*N*K operations at the dense int8 rate and its bytes (padded
+    channels-last codes and scales read once, the float32 output written
+    once) at the memory rate. -> (ms, "operations" or "bytes")."""
+    b, hp, wp, c = xq_shape
+    o, kh, kw, _ = wq_shape
+    m = b * (hp - kh + 1) * (wp - kw + 1)
+    return _bound(2.0 * m * o * kh * kw * c,
+                  b * hp * wp * c + o * kh * kw * c + 4 * (b + o) + 4 * m * o)
+
+
+def int8_fused_bound_ms(site: dict, x_reads: int = 2) -> tuple[float, str]:
+    """The least time of one int8 site as the fused kernels compute it:
+    ``x`` read ``x_reads`` times (the pre-pass and the conv), the style,
+    the weight codes, the scales and the demodulation read once, the
+    output written once in the activation dtype; 2*M*N*K operations at the
+    dense int8 rate."""
+    x, w_q = site["x"], site["w_q"]
+    b, c, h, w = x.shape
+    o = w_q.shape[0]
+    m = b * (h + 2 * site["padding"] - 2) * (w + 2 * site["padding"] - 2)
+    out = m * o * site["dtype"].itemsize
+    nbytes = x_reads * x.numel() * x.element_size() + 4 * b * c + w_q.numel() + 4 * (b + o) \
+        + 4 * b * o + out
+    return _bound(2.0 * m * o * 9 * c, nbytes)
+
+
+def _site_label(site: dict) -> str:
+    return (f"x{list(site['x'].shape)} {str(site['x'].dtype)[6:]}->{str(site['dtype'])[6:]} "
+            f"o{site['w_q'].shape[0]} pad {site['padding']} {site['pad_mode']}"
+            f"{'' if site['s'] is not None else ' unmodulated'}")
+
+
 def phase_int8_kernel(torch, config, source: np.ndarray) -> dict:
-    """18a: the int8 conv kernel against its plain version at the 10 sites
-    of an n = 64 decode, on the codes of float32 and bfloat16 activations,
+    """18a: the int8 pre-pass and fused conv kernels against their plain
+    versions at the 10 sites of an n = 64 decode in float32 and bfloat16,
     and at ragged shapes; times per site type."""
     import torch.nn.functional as F
 
     from one_to_many_gan_torch.core import Models, make_inference_fns
-    from one_to_many_gan_torch.ops.cuda.int8_conv import int8_conv_codes, int8_conv_plain
-    from one_to_many_gan_torch.ops.quantize import kernel_operands
+    from one_to_many_gan_torch.ops.cuda.int8_conv import (
+        fused_int8_conv,
+        fused_int8_conv_plain,
+        int8_prepass,
+        int8_prepass_plain,
+    )
+    from one_to_many_gan_torch.ops.quantize import quantize_activations
+
+    run = int8_run
+    plain = functools.partial(int8_run, plain=True)
+
+    def conv_only(site, x_scale):
+        return fused_int8_conv(site["x"], site["s"], x_scale, site["w_q"], site["w_scale"],
+                               site["d"], padding=site["padding"], pad_mode=site["pad_mode"],
+                               dtype=site["dtype"])
+
+    def conv_plain(site, x_scale):
+        return fused_int8_conv_plain(site["x"], site["s"], x_scale, site["w_q"], site["w_scale"],
+                                     site["d"], padding=site["padding"],
+                                     pad_mode=site["pad_mode"], dtype=site["dtype"])
+
+    def check_site(site: dict, label: str) -> dict:
+        """Both kernels against their plain versions, and a second launch."""
+        xs = int8_prepass(site["x"], site["s"], site["dtype"])
+        xs_plain = int8_prepass_plain(site["x"], site["s"], site["dtype"])
+        got, again = conv_only(site, xs), run(site)
+        want = plain(site)
+        torch.cuda.synchronize()
+        res = {"label": label, "prepass_bitwise": torch.equal(xs, xs_plain),
+               "prepass_max_abs_err": (xs - xs_plain).abs().max().item(),
+               "max_abs_err": (got.float() - want.float()).abs().max().item(),
+               "bitwise": torch.equal(got, want), "repeat_bitwise_equal": torch.equal(got, again)}
+        check(res["prepass_bitwise"] and res["bitwise"] and res["repeat_bitwise_equal"],
+              f"int8 kernels differ from their plain versions or themselves: {res}")
+        return res
 
     flush = torch.zeros(128 * 2**20, dtype=torch.uint8, device="cuda")
     n = BUCKETS[-1]
@@ -3339,82 +3458,100 @@ def phase_int8_kernel(torch, config, source: np.ndarray) -> dict:
         cfg["tpu"]["precision"] = dtype_name
         models = Models(cfg, device="cuda", seed=0, int8_decode=True)
         seen: list = []
-        with int8_sites(seen):
+        with torch.inference_mode(), int8_sites(seen):
             make_inference_fns(models)[2](*_fixed_inputs(torch, source, models.w_dim, n))
         torch.cuda.synchronize()
         check(len(seen) == INT8_SITES_PER_DECODE,
-              f"{len(seen)} int8 convs in one n={n} decode, want {INT8_SITES_PER_DECODE}")
+              f"{len(seen)} int8 sites in one n={n} decode, want {INT8_SITES_PER_DECODE}")
         with torch.inference_mode():
             for i in range(len(seen)):
-                x, w = seen[i]
+                site = seen[i]
                 seen[i] = None
-                codes = kernel_operands(x, w)
-                got, again = int8_conv_codes(*codes), int8_conv_codes(*codes)
-                want = int8_conv_plain(*codes)
-                torch.cuda.synchronize()
-                site = {"dtype": dtype_name, "site": i, "x": list(x.shape), "w": list(w.shape),
-                        "max_abs_err": (got - want).abs().max().item(),
-                        "bitwise": torch.equal(got, want),
-                        "repeat_bitwise_equal": torch.equal(got, again)}
-                check(site["bitwise"] and site["repeat_bitwise_equal"],
-                      f"int8 kernel differs from its plain version or itself: {site}")
-                del got, again, want
+                res = check_site(site, f"{dtype_name} site {i}")
+                res.update({"dtype": dtype_name, "site": i, "x": list(site["x"].shape),
+                            "w": list(site["w_q"].shape), "pad_mode": site["pad_mode"]})
+                sites.append(res)
                 kind = next((k for k, v in INT8_SITE_TYPES.items() if v == i), None)
                 if kind is not None:
-                    t = types.setdefault(kind, {"x": list(x.shape), "w": list(w.shape)})
-                    t[f"quantise_ms_{dtype_name}"] = time_cold_ms(
-                        torch, {"q": lambda a, w=w: kernel_operands(a, w)}, x, flush,
-                        INT8_TIMING_REPS)["q"]
+                    t = types.setdefault(kind, {"x": list(site["x"].shape),
+                                                "w": list(site["w_q"].shape),
+                                                "pad_mode": site["pad_mode"]})
+                    xs = int8_prepass(site["x"], site["s"], site["dtype"])
+                    ms = time_cold_ms(torch, {
+                        "kernel_ms": run,
+                        "prepass_ms": lambda a: int8_prepass(a["x"], a["s"], a["dtype"]),
+                        "conv_ms": lambda a: conv_only(a, xs),
+                        "plain_ms": plain,
+                        "prepass_plain_ms": lambda a: int8_prepass_plain(a["x"], a["s"],
+                                                                         a["dtype"]),
+                        "conv_plain_ms": lambda a: conv_plain(a, xs),
+                        "library_ms": lambda a: int8_library(torch, a),
+                    }, site, flush, INT8_TIMING_REPS)
+                    t[dtype_name] = ms
+                    t[dtype_name]["library_bitwise"] = torch.equal(int8_library(torch, site),
+                                                                   plain(site))
+                    t[dtype_name]["bound_ms"], t[dtype_name]["bound_by"] = \
+                        int8_fused_bound_ms(site)
+                    t[dtype_name]["conv_bound_ms"], t[dtype_name]["conv_bound_by"] = \
+                        int8_fused_bound_ms(site, x_reads=1)
+                    t[dtype_name]["prepass_bound_ms"] = (
+                        site["x"].numel() * site["x"].element_size()
+                        + 4 * site["x"].shape[0] * (site["x"].shape[1] + 1)) \
+                        / HBM_BYTES_PER_S * 1e3
                     if dtype_name == "float32":
-                        xb = codes[0].permute(0, 3, 1, 2).to(torch.bfloat16).contiguous()
-                        wb = codes[1].permute(0, 3, 1, 2).to(torch.bfloat16).contiguous()
-                        t.update(time_cold_ms(torch, {
-                            "kernel_ms": lambda c: int8_conv_codes(*c),
-                            "plain_ms": lambda c: int8_conv_plain(*c),
-                            "library_ms": lambda c: int8_library(torch, *c),
-                        }, codes, flush, INT8_TIMING_REPS))
-                        t["library_bitwise"] = torch.equal(int8_library(torch, *codes),
-                                                           int8_conv_plain(*codes))
+                        xq = quantize_activations(site_padded(site))[0]
+                        wq = site["w_q"].permute(0, 2, 3, 1)
+                        t["codes_bound_ms"], t["codes_bound_by"] = int8_bound_ms(
+                            tuple(xq.permute(0, 2, 3, 1).shape), tuple(wq.shape))
+                        xb = xq.to(torch.bfloat16)
+                        wb = site["w_q"].to(torch.bfloat16)
                         t["bf16_conv_ms"] = time_cold_ms(
                             torch, {"c": lambda a: F.conv2d(a, wb)}, xb, flush,
                             INT8_TIMING_REPS)["c"]
-                        t["bound_ms"], t["bound_by"] = int8_bound_ms(tuple(codes[0].shape),
-                                                                     tuple(codes[1].shape))
-                        del xb, wb
-                sites.append(site)
-                del x, w, codes
+                        del xq, wq, xb, wb
+                del site
         del models, seen
         torch.cuda.empty_cache()
     gen = torch.Generator("cuda").manual_seed(18)
     ragged = []
-    for b, c, hp, wp, o in INT8_RAGGED:
-        x = torch.randn((b, c, hp, wp), generator=gen, device="cuda")
-        w = torch.randn((o, c, 3, 3), generator=gen, device="cuda") * 0.05
-        codes = kernel_operands(x, w)
-        got, want = int8_conv_codes(*codes), int8_conv_plain(*codes)
-        torch.cuda.synchronize()
-        ragged.append({"shape": [b, c, hp, wp, o], "bitwise": torch.equal(got, want)})
-        check(ragged[-1]["bitwise"], f"int8 kernel differs from plain at {ragged[-1]}")
+    with torch.inference_mode():
+        for shape in INT8_RAGGED:
+            for site in random_sites(torch, gen, *shape):
+                ragged.append(check_site(site, _site_label(site)))
     del flush
     torch.cuda.empty_cache()
     counts = {"resnet": INT8_SITES_PER_DECODE - 2, "up1": 1, "up2": 1}
-    per_decode = {key: sum(counts[k] * types[k][key] for k in counts)
-                  for key in ("kernel_ms", "plain_ms", "library_ms", "bf16_conv_ms", "bound_ms",
-                              "quantise_ms_float32", "quantise_ms_bfloat16")}
-    ops_share = sum(counts[k] * types[k]["bound_ms"] for k in counts
-                    if types[k]["bound_by"] == "operations") / per_decode["bound_ms"]
-    per_decode["bound_by"] = "operations" if ops_share >= 0.5 else "bytes"
+    per_decode = {}
+    for dtype_name in ("float32", "bfloat16"):
+        per_decode[dtype_name] = {
+            key: sum(counts[k] * types[k][dtype_name][key] for k in counts)
+            for key in ("kernel_ms", "prepass_ms", "conv_ms", "plain_ms", "prepass_plain_ms",
+                        "conv_plain_ms", "library_ms", "bound_ms", "conv_bound_ms",
+                        "prepass_bound_ms")}
+        for bound in ("bound", "conv_bound"):
+            ops_share = sum(counts[k] * types[k][dtype_name][f"{bound}_ms"] for k in counts
+                            if types[k][dtype_name][f"{bound}_by"] == "operations") \
+                / per_decode[dtype_name][f"{bound}_ms"]
+            per_decode[dtype_name][f"{bound}_by"] = "operations" if ops_share >= 0.5 else "bytes"
+    per_decode["codes_bound_ms"] = sum(counts[k] * types[k]["codes_bound_ms"] for k in counts)
+    per_decode["bf16_conv_ms"] = sum(counts[k] * types[k]["bf16_conv_ms"] for k in counts)
     for kind, t in types.items():
-        log(f"int8 conv {kind} x{t['x']} w{t['w']}: kernel {t['kernel_ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f}, im2col + _int_mm {t['library_ms']:.4f} (bitwise "
-            f"{t['library_bitwise']}), bf16 conv (not the same function) {t['bf16_conv_ms']:.4f}, "
-            f"bound {t['bound_ms']:.4f} ({t['bound_by']}); kernel/bound "
-            f"{t['kernel_ms'] / t['bound_ms']:.2f}; quantise f32 {t['quantise_ms_float32']:.4f}"
-            f" / bf16 {t['quantise_ms_bfloat16']:.4f} ms")
-    log("int8 conv per n=64 decode (10 sites): " + ", ".join(
-        f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in per_decode.items()))
-    log(f"phase 18a ok: {len(sites)} sites (f32 and bf16 codes) and {len(ragged)} ragged "
-        "shapes bitwise equal to the plain version, repeats bitwise equal")
+        for dtype_name in ("float32", "bfloat16"):
+            m = t[dtype_name]
+            log(f"int8 {kind} {dtype_name} x{t['x']} w{t['w']} {t['pad_mode']}: kernels "
+                f"{m['kernel_ms']:.4f} ms (pre-pass {m['prepass_ms']:.4f}, conv "
+                f"{m['conv_ms']:.4f}), plain {m['plain_ms']:.4f}, torch passes + im2col + "
+                f"_int_mm {m['library_ms']:.4f} (bitwise {m['library_bitwise']}), bound "
+                f"{m['bound_ms']:.4f} ({m['bound_by']}); kernels/bound "
+                f"{m['kernel_ms'] / m['bound_ms']:.2f}")
+        log(f"int8 {kind}: codes-only bound {t['codes_bound_ms']:.4f} ({t['codes_bound_by']}), "
+            f"bf16 cuDNN conv of the codes (not the same function) {t['bf16_conv_ms']:.4f} ms")
+    for key, v in per_decode.items():
+        log(f"int8 per n=64 decode (10 sites) {key}: " + (", ".join(
+            f"{k} {x:.4f}" if isinstance(x, float) else f"{k} {x}" for k, x in v.items())
+            if isinstance(v, dict) else f"{v:.4f} ms"))
+    log(f"phase 18a ok: {len(sites)} decode sites (f32 and bf16) and {len(ragged)} ragged sites, "
+        "pre-pass and fused conv bitwise equal to their plain versions, repeats bitwise equal")
     return {"sites": sites, "types": types, "per_decode": per_decode, "ragged": ragged}
 
 
@@ -3453,7 +3590,7 @@ def phase_int8_serve(torch, config, source: np.ndarray) -> dict:
     the float engines; the launches of the int8 path; images against the
     float32 engine's. 18c: the int8 engine on the card against the CPU."""
     from one_to_many_gan_torch.core import Models, make_inference_fns
-    from one_to_many_gan_torch.ops.cuda import fused_instance_norm, int8_conv_codes
+    from one_to_many_gan_torch.ops.cuda import fused_instance_norm, fused_int8_conv, int8_prepass
     from one_to_many_gan_torch.serve import InferenceEngine
 
     h, w = config["data"]["image_size"]
@@ -3467,19 +3604,20 @@ def phase_int8_serve(torch, config, source: np.ndarray) -> dict:
             engine.warmup(batched=False)
             engines[precision + ("_int8" if int8 else "")] = engine
     # the main path: int8 requests over HTTP, the counts read around them
-    int8_conv_codes.launches = fused_instance_norm.launches = 0
+    int8_prepass.launches = fused_int8_conv.launches = fused_instance_norm.launches = 0
     for name in ("float32_int8", "bfloat16_int8"):
         engines[name].device_calls = 0
     latency, health = {}, {}
     for name in ("float32_int8", "bfloat16_int8"):
         latency[name], health[name] = _serve_requests(torch, engines[name], body, h, w)
-    launches = {"int8_conv": int8_conv_codes.launches,
+    launches = {"int8_prepass": int8_prepass.launches, "int8_conv": fused_int8_conv.launches,
                 "instance_norm": fused_instance_norm.launches}
     calls = sum(engines[k].device_calls for k in ("float32_int8", "bfloat16_int8"))
     for name in ("float32", "bfloat16"):
         latency[name], health[name] = _serve_requests(torch, engines[name], body, h, w)
-    check(calls > 0 and launches["int8_conv"] == INT8_SITES_PER_DECODE * calls,
-          f"int8 launches {launches['int8_conv']} for {calls} device calls (want 10 a call)")
+    for name in ("int8_prepass", "int8_conv"):
+        check(calls > 0 and launches[name] == INT8_SITES_PER_DECODE * calls,
+              f"{name} launches {launches[name]} for {calls} device calls (want 10 a call)")
     check(launches["instance_norm"] == 9 * calls,
           f"IN launches {launches['instance_norm']} for {calls} device calls (want 9 a call)")
     for name in ("float32_int8", "bfloat16_int8"):
@@ -3511,10 +3649,10 @@ def phase_int8_serve(torch, config, source: np.ndarray) -> dict:
     del engines
     torch.cuda.empty_cache()
     log(f"phase 18b ok: int8 serving over HTTP, {calls} device calls with "
-        f"{launches['int8_conv']} int8 and {launches['instance_norm']} IN launches, "
-        "/healthz int8 true")
+        f"{launches['int8_prepass']} pre-pass, {launches['int8_conv']} fused int8 conv and "
+        f"{launches['instance_norm']} IN launches, /healthz int8 true")
     # 18c: the same int8 engine on the card and on the CPU, n = INT8_CPU_N
-    from one_to_many_gan_torch.ops.quantize import int8_conv, quantize_activations
+    from one_to_many_gan_torch.ops.quantize import quantize_activations
 
     cpu_models = Models(config, device="cpu", seed=0, int8_decode=True)
     outs, taps = {}, {}
@@ -3523,15 +3661,16 @@ def phase_int8_serve(torch, config, source: np.ndarray) -> dict:
         seen: list = []
         with int8_sites(seen):
             outs[where] = make_inference_fns(models)[2](*inputs).float().cpu().numpy()
-        taps[where] = [(x.cpu(), w.cpu()) for x, w in seen]
+        taps[where] = [site_on(site, "cpu") for site in seen]
         del seen
     cpu_s = time.perf_counter() - t0
     with torch.inference_mode():
-        same = [torch.equal(int8_conv(x.cuda(), w.cuda()).cpu(), int8_conv(x, w))
-                for x, w in taps["cpu"]]
-    flips = [int((quantize_activations(a)[0] != quantize_activations(b)[0]).sum())
-             for (a, _), (b, _) in zip(taps["card"], taps["cpu"], strict=True)]
-    sizes = [x.numel() for x, _ in taps["card"]]
+        same = [torch.equal(int8_run(site_on(site, "cuda")).cpu(), int8_run(site))
+                for site in taps["cpu"]]
+    flips = [int((quantize_activations(site_padded(a))[0]
+                  != quantize_activations(site_padded(b))[0]).sum())
+             for a, b in zip(taps["card"], taps["cpu"], strict=True)]
+    sizes = [site_padded(site).numel() for site in taps["card"]]
     del taps
 
     def u8(a):
@@ -3721,30 +3860,54 @@ def main() -> int:
         "checked_in": "phases 10 and 16a",
     })
     i8, i8_types = report["int8_kernel"]["per_decode"], report["int8_kernel"]["types"]
+    f32, i8_launches = i8["float32"], report["int8_serve"]["launches"]
+    i8_checked = report["int8_kernel"]["sites"] + report["int8_kernel"]["ragged"]
+    i8_per = ("the 10 int8 sites of one n=64 decode of configs/default.toml (the resnet-block "
+              "site timed once, counted 8 times), float32, one call each, cold L2")
+    kernels.append({
+        "name": "int8_prepass",
+        "route": "cuda",
+        "source": "one_to_many_gan_torch/csrc/int8_conv.cu",
+        "replaces": INT8_PREPASS_REPLACES,
+        "launches": i8_launches["int8_prepass"],
+        "max_abs_err": max(s["prepass_max_abs_err"] for s in i8_checked),
+        "ms": f32["prepass_ms"],
+        "plain_ms": f32["prepass_plain_ms"],
+        "bound_ms": f32["prepass_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "per": i8_per + "; no single PyTorch call modulates and takes the per-sample amax",
+        "bfloat16": {k: i8["bfloat16"][k] for k in ("prepass_ms", "prepass_plain_ms",
+                                                     "prepass_bound_ms")},
+        "launches_by_phase": {"int8 serving (phase 18b)": i8_launches["int8_prepass"]},
+        "checked_in": "phase 18a",
+    })
     kernels.append({
         "name": "int8_conv",
         "route": "cuda",
         "source": "one_to_many_gan_torch/csrc/int8_conv.cu",
         "replaces": INT8_REPLACES,
-        "launches": report["int8_serve"]["launches"]["int8_conv"],
-        "max_abs_err": max(s["max_abs_err"] for s in report["int8_kernel"]["sites"]),
-        "ms": i8["kernel_ms"],
-        "plain_ms": i8["plain_ms"],
-        "bound_ms": i8["bound_ms"],
-        "bound_by": i8["bound_by"],
-        "library_ms": i8["library_ms"],
-        "per": "the 10 int8 convs of one n=64 decode of configs/default.toml (the resnet-block "
-               "site timed once, counted 8 times), one call each, cold L2; library: im2col "
-               "(Tensor.unfold, materialised) + torch._int_mm + the same rescale",
+        "launches": i8_launches["int8_conv"],
+        "max_abs_err": max(s["max_abs_err"] for s in i8_checked),
+        "ms": f32["conv_ms"],
+        "plain_ms": f32["conv_plain_ms"],
+        "bound_ms": f32["conv_bound_ms"],
+        "bound_by": f32["conv_bound_by"],
+        "library_ms": f32["library_ms"],
+        "per": i8_per + "; library: the site as torch passes (modulate, pad, quantise), im2col "
+               "(Tensor.unfold, materialised) + torch._int_mm, rescale, cast, demodulate",
+        "with_prepass": {dtype: {k: i8[dtype][k] for k in ("kernel_ms", "plain_ms", "bound_ms",
+                                                           "bound_by", "library_ms")}
+                         for dtype in ("float32", "bfloat16")},
+        "bfloat16": {k: i8["bfloat16"][k] for k in ("conv_ms", "conv_plain_ms", "conv_bound_ms",
+                                                     "conv_bound_by", "library_ms")},
+        "codes_only_bound_ms": i8["codes_bound_ms"],
         "bf16_conv_ms_not_the_same_function": i8["bf16_conv_ms"],
-        "quantise_ms_per_decode": {"float32": i8["quantise_ms_float32"],
-                                   "bfloat16": i8["quantise_ms_bfloat16"]},
-        "by_site_type": {k: {key: t[key] for key in ("x", "w", "kernel_ms", "plain_ms",
-                                                     "library_ms", "bf16_conv_ms", "bound_ms",
-                                                     "bound_by")}
+        "by_site_type": {k: {key: t[key] for key in ("x", "w", "pad_mode", "float32",
+                                                     "bfloat16", "codes_bound_ms",
+                                                     "bf16_conv_ms")}
                          for k, t in i8_types.items()},
-        "launches_by_phase": {"int8 serving (phase 18b)":
-                              report["int8_serve"]["launches"]["int8_conv"]},
+        "launches_by_phase": {"int8 serving (phase 18b)": i8_launches["int8_conv"]},
         "checked_in": "phase 18a",
     })
     report["wall_s"] = time.perf_counter() - t_start

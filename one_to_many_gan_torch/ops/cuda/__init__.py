@@ -8,7 +8,13 @@ from one_to_many_gan_torch.ops.cuda.instance_norm import (
     fused_instance_norm,
     instance_norm_plain,
 )
-from one_to_many_gan_torch.ops.cuda.int8_conv import int8_conv_codes, int8_conv_plain
+from one_to_many_gan_torch.ops.cuda.int8_conv import (
+    fused_int8_conv,
+    int8_conv_plain,
+    int8_prepass,
+    modulated_int8_conv,
+    modulated_int8_conv_plain,
+)
 from one_to_many_gan_torch.ops.cuda.warp import (
     warp,
     warp_bwd,
@@ -20,8 +26,11 @@ from one_to_many_gan_torch.ops.cuda.warp import (
 __all__ = [
     "fused_instance_norm",
     "instance_norm_plain",
-    "int8_conv_codes",
+    "fused_int8_conv",
     "int8_conv_plain",
+    "int8_prepass",
+    "modulated_int8_conv",
+    "modulated_int8_conv_plain",
     "warp",
     "warp_bwd",
     "warp_bwd_plain",

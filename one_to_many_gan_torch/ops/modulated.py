@@ -15,7 +15,11 @@ under a bf16 activation policy.
 int8 codes (``ops/quantize.py``): the factorisation keeps the conv's
 weights static, so they quantise per output channel, and the modulated,
 padded activations quantise per sample. The result is cast to the
-activation dtype and demodulated as the float conv's is.
+activation dtype and demodulated as the float conv's is. The whole site,
+from the unpadded input to the demodulated output, is one call of
+``ops/cuda/int8_conv.py::modulated_int8_conv``: on the card an amax
+pre-pass and one fused conv kernel, with no torch pass over the
+activations.
 """
 
 from __future__ import annotations
@@ -24,8 +28,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from one_to_many_gan_torch.ops.cuda.int8_conv import modulated_int8_conv
 from one_to_many_gan_torch.ops.equalized import EqualizedLinear, he_constant, pad2d
-from one_to_many_gan_torch.ops.quantize import int8_conv
+from one_to_many_gan_torch.ops.quantize import quantize_weight
 from one_to_many_gan_torch.ops.remat import conv_out
 
 
@@ -61,19 +66,22 @@ class ModulatedConv(nn.Module):
     def forward(self, x: torch.Tensor, w_style: torch.Tensor) -> torch.Tensor:
         """x: [B, in, H, W]; w_style: [B, w_dim] -> [B, out, H, W]."""
         s = self.to_style(w_style)  # [B, in], float32 (float64 in a float64 copy)
-        x = x.to(self.dtype) * s[:, :, None, None].to(self.dtype)
         if self.int8:
-            # the codes of the padded tensor, as the JAX package quantises
-            x = pad2d(x, self.padding, self.pad_mode)
-            y = int8_conv(x, self.weight * self.c32).to(self.dtype)
+            w_q, w_scale = quantize_weight(self.weight * self.c32)
+            return modulated_int8_conv(x, s, w_q, w_scale, self._demodulation(s),
+                                       padding=self.padding, pad_mode=self.pad_mode,
+                                       dtype=self.dtype)
+        x = x.to(self.dtype) * s[:, :, None, None].to(self.dtype)
+        w = self.weight.to(self.dtype) * self.c
+        if self.pad_mode == "zero":
+            padding = self.padding
         else:
-            w = self.weight.to(self.dtype) * self.c
-            if self.pad_mode == "zero":
-                padding = self.padding
-            else:
-                x, padding = pad2d(x, self.padding, self.pad_mode), 0
-            with conv_out():  # the save point of tpu.remat = "conv"
-                y = F.conv2d(x, w, padding=padding)
+            x, padding = pad2d(x, self.padding, self.pad_mode), 0
+        with conv_out():  # the save point of tpu.remat = "conv"
+            y = F.conv2d(x, w, padding=padding)
+        return y * self._demodulation(s)[:, :, None, None].to(self.dtype)
+
+    def _demodulation(self, s: torch.Tensor) -> torch.Tensor:
+        """d [B, out], as s: rsqrt(s^2 @ sum_kk (c W)^2 + eps)."""
         wsq = (self.weight * self.c32).square().sum(dim=(2, 3))  # [out, in]
-        d = torch.rsqrt(s.square() @ wsq.T + self.eps)  # [B, out], as s
-        return y * d[:, :, None, None].to(self.dtype)
+        return torch.rsqrt(s.square() @ wsq.T + self.eps)

@@ -23,8 +23,6 @@ from __future__ import annotations
 
 import torch
 
-from one_to_many_gan_torch.ops.cuda.int8_conv import int8_conv_codes
-
 _QMAX = 127.0
 
 
@@ -47,30 +45,36 @@ def quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return _codes(w, scale[:, None, None, None]), scale
 
 
+def activation_scale(x: torch.Tensor) -> torch.Tensor:
+    """The per-sample scale (float32 [B]) of an NCHW batch of any float
+    dtype. The largest |x| of a sample is the larger of |min| and |max|,
+    one pass."""
+    lo, hi = torch.aminmax(x.to(torch.float32).reshape(x.shape[0], -1), dim=1)
+    return _scale(torch.maximum(lo.neg(), hi))
+
+
+def activation_codes(x: torch.Tensor, x_scale: torch.Tensor) -> torch.Tensor:
+    """The int8 codes (NCHW) of ``x`` at the per-sample scales ``x_scale``."""
+    return _codes(x.to(torch.float32), x_scale[:, None, None, None])
+
+
 def quantize_activations(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-sample int8 codes of an NCHW batch of any float dtype: -> (``x_q``
-    int8 NCHW, ``x_scale`` float32 [B]) with ``x_q * x_scale ~= x``. The
-    largest |x| of a sample is the larger of |min| and |max|, one pass."""
-    x = x.to(torch.float32)
-    lo, hi = torch.aminmax(x.reshape(x.shape[0], -1), dim=1)
-    scale = _scale(torch.maximum(lo.neg(), hi))
-    return _codes(x, scale[:, None, None, None]), scale
-
-
-def kernel_operands(x: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, ...]:
-    """The int8 conv kernel's operands of a padded NCHW ``x`` and an OIHW
-    ``w``: (channels-last activation codes [B, Hp, Wp, C], weight codes
-    [O, KH, KW, C], ``x_scale``, ``w_scale``)."""
-    x_q, x_scale = quantize_activations(x)
-    w_q, w_scale = quantize_weight(w)
-    return (x_q.permute(0, 2, 3, 1).contiguous(), w_q.permute(0, 2, 3, 1).contiguous(),
-            x_scale, w_scale)
+    int8 NCHW, ``x_scale`` float32 [B]) with ``x_q * x_scale ~= x``."""
+    scale = activation_scale(x)
+    return activation_codes(x, scale), scale
 
 
 def int8_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The VALID conv of an already padded NCHW ``x`` with the OIHW float32
-    weight ``w`` (the equalized-LR constant applied), on int8 codes: both
-    quantised, the codes laid out for the kernel (``kernel_operands``,
-    ``ops/cuda/int8_conv.py``), the result float32 NCHW. CUDA tensors
-    launch the kernel, CPU tensors take its plain version."""
-    return int8_conv_codes(*kernel_operands(x, w))
+    """The VALID 3x3 conv of an already padded NCHW ``x`` with the OIHW
+    float32 weight ``w`` (the equalized-LR constant applied), on int8
+    codes, the result float32 NCHW: the fused modulated int8 conv
+    (``ops/cuda/int8_conv.py``) with no modulation, no padding and no
+    demodulation. CUDA tensors launch its kernels, CPU tensors take its
+    plain version."""
+    # imported here: ops/cuda/int8_conv.py builds its plain version from this module
+    from one_to_many_gan_torch.ops.cuda.int8_conv import modulated_int8_conv
+
+    w_q, w_scale = quantize_weight(w)
+    return modulated_int8_conv(x, None, w_q, w_scale, None, padding=0, pad_mode="zero",
+                               dtype=torch.float32)

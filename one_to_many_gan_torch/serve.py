@@ -28,10 +28,11 @@ small n can take longer on k cards than on one.
 Int8 serving (``InferenceEngine(int8=True)``, ``--int8``; the JAX
 engine's): every replica's decoder runs its modulated convs on int8 codes
 (``ops/quantize.py``: per-sample activation scales, per-output-channel
-weight scales, the conv on the card's int8 tensor cores through the
-kernel of ``csrc/int8_conv.cu``). The same checkpoints and artifacts
-load. With ``data_parallel = k`` each card quantises its own slice of the
-style batch; the scales are per sample, so its codes are one card's.
+weight scales; each site an amax pre-pass and one fused modulated conv
+on the card's int8 tensor cores, ``csrc/int8_conv.cu``). The same
+checkpoints and artifacts load. With ``data_parallel = k`` each card
+quantises its own slice of the style batch; the scales are per sample,
+so its codes are one card's.
 
 API (stdlib ``http.server``):
 

@@ -9,8 +9,9 @@ H100s: the kernels are built for sm_90a). It builds the CUDA kernels once
 (a) the instance-norm kernel at the production step's sites and the warp
     forward and backward at [8, 512, 512], float32 and bfloat16, antialias
     on and off, on every card but the first, against their plain versions
-    at ``chip_smoke.py``'s limits (phases 2, 7 and 10), and the int8 conv
-    at phase 18's ragged shapes and a resnet-block site, bitwise;
+    at ``chip_smoke.py``'s limits (phases 2, 7 and 10), and the int8
+    pre-pass and fused conv at phase 18's ragged shapes and a resnet-block
+    site, float32 and bfloat16, both pad modes, bitwise;
 (b) the fused step at phase 11's config in float32 (256x256, global batch
     16, TF32 off, deterministic kernels), N ranks against one card, each
     step from the one card's state before it (its checkpoint dict) with
@@ -157,14 +158,13 @@ def kernels_on_cards(torch, cards: int) -> list:
     from one_to_many_gan_torch.ops.cuda import (
         fused_instance_norm,
         instance_norm_plain,
-        int8_conv_codes,
-        int8_conv_plain,
+        int8_prepass,
         warp,
         warp_bwd,
         warp_bwd_plain,
         warp_plain,
     )
-    from one_to_many_gan_torch.ops.quantize import kernel_operands
+    from one_to_many_gan_torch.ops.cuda.int8_conv import int8_prepass_plain
 
     cases = []
     for d in range(1, cards):
@@ -207,13 +207,15 @@ def kernels_on_cards(torch, cards: int) -> list:
                     res = cs._check_bwd(torch, got, want, dout, coords, aa,
                                         f"cuda:{d} warp_bwd {dtype_name} aa={aa}")
                     worst[f"warp_bwd_{dtype_name}_aa{int(aa)}"] = res["max_abs_err"]
-            for b, c, hp, wp, o in cs.INT8_RAGGED + ((8, 256, 130, 66, 256),):
-                x = torch.randn((b, c, hp, wp), generator=gen, device="cuda")
-                codes = kernel_operands(x, torch.randn((o, c, 3, 3), generator=gen,
-                                                       device="cuda"))
-                cs.check(torch.equal(int8_conv_codes(*codes), int8_conv_plain(*codes)),
-                         f"cuda:{d}: int8 conv differs from its plain version at {x.shape}")
-            worst["int8_conv"] = 0.0
+            for shape in cs.INT8_RAGGED + ((8, 256, 128, 64, 256),):
+                for site in cs.random_sites(torch, gen, *shape):
+                    x_scale = int8_prepass(site["x"], site["s"], site["dtype"])
+                    cs.check(torch.equal(x_scale, int8_prepass_plain(site["x"], site["s"],
+                                                                     site["dtype"]))
+                             and torch.equal(cs.int8_run(site), cs.int8_run(site, plain=True)),
+                             f"cuda:{d}: int8 kernels differ from their plain versions at "
+                             f"{cs._site_label(site)}")
+            worst["int8_prepass"] = worst["int8_conv"] = 0.0
             torch.cuda.synchronize()
         log(f"(a) cuda:{d}: every kernel within its limit; largest errors "
             + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
@@ -688,10 +690,11 @@ def _int8_flips(torch, one: list, parts: list, m: int) -> list:
     from one_to_many_gan_torch.ops.quantize import quantize_activations
 
     flips = []
-    for i, (x, _) in enumerate(one):
-        codes = quantize_activations(x)[0]
+    for i, site in enumerate(one):
+        codes = quantize_activations(cs.site_padded(site))[0]
         flips.append(sum(
-            int((codes[r * m:(r + 1) * m] != quantize_activations(p[i][0])[0].to(x.device)).sum())
+            int((codes[r * m:(r + 1) * m]
+                 != quantize_activations(cs.site_padded(p[i]))[0].to(codes.device)).sum())
             for r, p in enumerate(parts)))
     return flips
 
@@ -700,7 +703,7 @@ def _serve_pair(torch, config, cards: int, int8: bool) -> dict:
     """One card's engine and ``cards`` cards' (float or int8): the images of
     one n = 64 decode against each other, then n = 8, 32, 64 over HTTP."""
     from one_to_many_gan_torch import serve
-    from one_to_many_gan_torch.ops.cuda import fused_instance_norm, int8_conv_codes
+    from one_to_many_gan_torch.ops.cuda import fused_instance_norm, fused_int8_conv, int8_prepass
 
     h, w = config["data"]["image_size"]
     source = cs._source_image(0, h, w)
@@ -758,10 +761,11 @@ def _serve_pair(torch, config, cards: int, int8: bool) -> dict:
                     times.append(ms)
                 cs._check_out(cs._npy(payload), b, h, w)
                 lat[b] = statistics.median(times)
-            c0 = (fused_instance_norm.launches, int8_conv_codes.launches)
+            c0 = (fused_instance_norm.launches, fused_int8_conv.launches, int8_prepass.launches)
             cs._post(port, body, n=n, seed=0, format="npy")
             in_per_call = fused_instance_norm.launches - c0[0]
-            int8_per_call = int8_conv_codes.launches - c0[1]
+            int8_per_call = fused_int8_conv.launches - c0[1]
+            prepass_per_call = int8_prepass.launches - c0[2]
             health = cs._get(port, "/healthz")
         finally:
             httpd.shutdown()
@@ -769,8 +773,9 @@ def _serve_pair(torch, config, cards: int, int8: bool) -> dict:
             server.join(timeout=60)
         cs.check(health.get("data_parallel") == k and health.get("int8") is int8,
                  f"/healthz {health}")
-        cs.check(int8_per_call == (cs.INT8_SITES_PER_DECODE * k if int8 else 0),
-                 f"{int8_per_call} int8 launches in one n={n} call on {k} cards")
+        for name, count in (("fused int8 conv", int8_per_call), ("pre-pass", prepass_per_call)):
+            cs.check(count == (cs.INT8_SITES_PER_DECODE * k if int8 else 0),
+                     f"{count} {name} launches in one n={n} call on {k} cards")
         out[k] = {"latency_ms": lat, "in_launches_per_call": in_per_call,
                   "int8_launches_per_call": int8_per_call}
     label = "int8" if int8 else "float32"

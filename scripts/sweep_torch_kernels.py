@@ -4,6 +4,7 @@ GPU, each alternative timed against the others in one run, cold L2.
     python3 scripts/sweep_torch_kernels.py in-plans
     python3 scripts/sweep_torch_kernels.py warp-variants
     python3 scripts/sweep_torch_kernels.py gather-variants
+    python3 scripts/sweep_torch_kernels.py int8-variants
 
 ``in-plans``: the instance norm at the serving, D-step and fused-step sites
 under every block layout the kernel's entry takes (planes per block,
@@ -25,8 +26,21 @@ plain version (a variant may chunk a region elsewhere, so its sums may
 be ordered otherwise). Variants named ``x_*`` leave out one part of the
 work (the summing loop, the tap arithmetic of the staged pixels, every
 tile), compute wrong results and are timed only, to show where the
-gather's time goes. Builds go to ``build/sweep/``; results to
-``chiprun_out/sweep_<what>.json``. Needs a CUDA card and nvcc.
+gather's time goes.
+
+``int8-variants``: copies of ``csrc/int8_conv.cu`` with one choice of the
+fused conv changed each (every code from the IEEE division, the quantiser's
+item loop unrolled twice), built in parallel and timed (the conv alone,
+its pre-pass's scale given) against the source at the three site types of
+an n = 64 decode of ``configs/default.toml``, float32 and bfloat16; each
+is first held bitwise to the plain version there and at phase 18's ragged
+sites. Variants named ``x_*`` leave out one part of the work (the
+quantisation, the products, the weight copies, the raw input copies, the
+output stores), compute wrong results and are timed only, to show where
+the conv's time goes.
+
+Builds go to ``build/sweep/``; results to ``chiprun_out/sweep_<what>.json``.
+Needs a CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -53,6 +67,10 @@ IN_SITES = [  # (B, C, H, W, dtype name): one of each plane size on the paths
     (16, 256, 128, 128, "bfloat16"), (16, 256, 64, 64, "bfloat16"), (32, 128, 126, 126, "bfloat16"),
     (32, 256, 62, 62, "bfloat16"), (32, 512, 30, 30, "bfloat16"), (16, 512, 30, 30, "bfloat16"),
 ]
+# The int8 sites of an n = 64 decode of configs/default.toml: (B, C, H, W, O,
+# pad mode), unpadded (chip_smoke.INT8_SITE_TYPES).
+INT8_SITES = {"resnet": (64, 256, 128, 64, 256, "reflect"),
+              "up1": (64, 256, 256, 128, 128, "zero"), "up2": (64, 128, 512, 256, 64, "zero")}
 WARP_CASES = [((16, 256, 256), "bfloat16", True), ((16, 256, 256), "float32", True),
               ((16, 256, 256), "float32", False), ((4, 512, 256), "bfloat16", True),
               ((4, 512, 256), "float32", False)]
@@ -161,16 +179,43 @@ def _gather_sources(src: str) -> dict:
     }
 
 
-def _build_all(sources: dict) -> dict:
+def _int8_sources(src: str) -> dict:
+    """The source and one copy per alternative of the fused conv."""
+
+    def swap(text: str, old: str, new: str) -> str:
+        cs.check(old in text, f"int8 variant: {old[:60]!r} not in the source")
+        return text.replace(old, new)
+
+    items = "#pragma unroll 1\n    for (int i = tid; i < kItems; i += kThreads) {"
+    weights = ("    mbar_expect_tx(&full[st], T::kBStage);\n"
+               "    bulk_load(sb + st * T::kBStage, wtile + static_cast<long long>(kt) * T::kBStage,\n"
+               "              T::kBStage, &full[st]);\n")
+    return {
+        "source": src,
+        "division_codes": swap(src, "  if (near_tie) {", "  if (true) {"),
+        "items_unroll2": swap(src, items, items.replace("unroll 1", "unroll 2")),
+        # timing only (wrong results): where the conv's time goes
+        "x_no_quantise": swap(src, "      if (item >> 16) {", "      if (false) {"),
+        "x_no_products": swap(src, "        wgmma_s8(acc[r], smem_desc(a, T::kPix * 16, 128), "
+                              "smem_desc(bw, N * 16, 128));", ""),
+        "x_no_weight_copies": swap(swap(src, weights, ""),
+                                   "    mbar_wait(&full[st], (kt >> 1) & 1);\n", ""),
+        "x_no_raw_copies": swap(src, "      load_raw(kt + 2);\n", ""),
+        "x_no_stores": swap(src, "    if (oy >= Ho || o >= O || ox >= Wo) continue;",
+                            "    if (oy >= 0) continue;"),
+    }
+
+
+def _build_all(sources: dict, prefix: str = "warp") -> dict:
     from one_to_many_gan_torch.ops.cuda import build
 
     BUILD.mkdir(parents=True, exist_ok=True)
 
     def one(item):
         name, text = item
-        path = BUILD / f"warp_{name}.cu"
+        path = BUILD / f"{prefix}_{name}.cu"
         path.write_text(text)
-        lib = BUILD / f"libwarp_{name}.so"
+        lib = BUILD / f"lib{prefix}_{name}.so"
         t0 = time.perf_counter()
         proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(path)],
                               capture_output=True, text=True, check=False)
@@ -284,12 +329,66 @@ def gather_variants(torch) -> list:
             *results]
 
 
+def int8_variants(torch) -> list:
+    from one_to_many_gan_torch.ops.cuda import build
+    from one_to_many_gan_torch.ops.cuda import int8_conv as k
+    from one_to_many_gan_torch.ops.quantize import quantize_weight
+
+    built = _build_all(_int8_sources((ROOT / "one_to_many_gan_torch/csrc/int8_conv.cu")
+                                     .read_text()), "int8_conv")
+    for name, info in built.items():
+        cs.log(f"built {name} in {info['build_s']:.1f} s; " + "; ".join(info["ptxas"][-4:]))
+    gen = torch.Generator("cuda").manual_seed(12)
+    flush = torch.zeros(128 * 2**20, dtype=torch.uint8, device="cuda")
+    sites = {}
+    for kind, (b, c, h, w, o, pad_mode) in INT8_SITES.items():
+        x = torch.randn((b, c, h, w), generator=gen, device="cuda")
+        s = torch.randn((b, c), generator=gen, device="cuda")
+        d = torch.rand((b, o), generator=gen, device="cuda") + 0.5
+        w_q, w_scale = quantize_weight(torch.randn((o, c, 3, 3), generator=gen, device="cuda")
+                                       * 0.05)
+        for dtype in (torch.float32, torch.bfloat16):
+            sites[(kind, str(dtype)[6:])] = {"x": x.to(dtype), "s": s, "w_q": w_q,
+                                             "w_scale": w_scale, "d": d, "padding": 1,
+                                             "pad_mode": pad_mode, "dtype": dtype}
+        del x
+    ragged = [site for shape in cs.INT8_RAGGED for site in cs.random_sites(torch, gen, *shape)]
+    x_scales = {key: k.int8_prepass(site["x"], site["s"], site["dtype"])
+                for key, site in sites.items()}
+    results = []
+    try:
+        for name, info in built.items():
+            build._loaded["int8_conv"] = ctypes.CDLL(str(info["lib"]))  # the wrapper's library
+
+            def conv(site, x_scale):
+                return k.fused_int8_conv(site["x"], site["s"], x_scale, site["w_q"],
+                                         site["w_scale"], site["d"], padding=site["padding"],
+                                         pad_mode=site["pad_mode"], dtype=site["dtype"])
+
+            if not name.startswith("x_"):
+                for site in ragged + list(sites.values()):
+                    cs.check(torch.equal(cs.int8_run(site), cs.int8_run(site, plain=True)),
+                             f"int8 variant {name} differs from the plain version at "
+                             f"{cs._site_label(site)}")
+            ms = {}
+            for key, site in sites.items():
+                ms["/".join(key)] = cs.time_cold_ms(
+                    torch, {name: lambda a, xs=x_scales[key]: conv(a, xs)}, site, flush,
+                    reps=10)[name]
+            cs.log(f"int8 {name}: " + " ".join(f"{k2}={v:.4f}" for k2, v in ms.items()))
+            results.append({"variant": name, "ms": ms})
+    finally:
+        build._loaded.pop("int8_conv", None)
+    return [{name: {"build_s": i["build_s"], "ptxas": i["ptxas"]} for name, i in built.items()},
+            *results]
+
+
 def main() -> int:
     import torch
 
     what = sys.argv[1] if len(sys.argv) > 1 else ""
     sweeps = {"in-plans": in_plans, "warp-variants": warp_variants,
-              "gather-variants": gather_variants}
+              "gather-variants": gather_variants, "int8-variants": int8_variants}
     if what not in sweeps:
         print(__doc__, file=sys.stderr)
         return 2

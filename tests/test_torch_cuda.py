@@ -25,9 +25,10 @@ over the plane in different orders, and the closed form and autograd's
 chain of plain ops round differently; 1.2e-7 measured on the CPU) and at
 the JAX package's 0.05 in bfloat16 (autograd rounds every step of the
 plain chain to bfloat16; 0.016 measured on the CPU on gradients of
-magnitude 2). The int8 conv is held to its plain version bitwise (integer
-sums are exact in any order; the rescale rounds alike), and two launches
-give the same bits.
+magnitude 2). The int8 pre-pass and the fused int8 conv are held to
+their plain versions bitwise (the largest |value| is exact in any order,
+integer sums are exact in any order, and every rounding is the plain
+version's), and two launches give the same bits.
 """
 
 import math
@@ -46,8 +47,10 @@ from one_to_many_gan_torch.augment.pipeline import (
 from one_to_many_gan_torch.ops.cuda import (
     fused_instance_norm,
     instance_norm_plain,
-    int8_conv_codes,
-    int8_conv_plain,
+    fused_int8_conv,
+    int8_prepass,
+    modulated_int8_conv,
+    modulated_int8_conv_plain,
     warp,
     warp_bwd,
     warp_bwd_plain,
@@ -56,9 +59,9 @@ from one_to_many_gan_torch.ops.cuda import (
 )
 from one_to_many_gan_torch.ops.cuda import instance_norm as in_module
 from one_to_many_gan_torch.ops.cuda.warp import AA_MAX_WIDTH, RADIUS
+from one_to_many_gan_torch.ops.cuda.int8_conv import int8_prepass_plain
 from one_to_many_gan_torch.ops.quantize import (
     int8_conv,
-    kernel_operands,
     quantize_activations,
     quantize_weight,
 )
@@ -560,64 +563,104 @@ def test_warp_bwd_raises_instead_of_falling_back(cuda):
 # ------------------------------------------------------------ the int8 conv
 
 
-def _int8_codes(gen, b, c, hp, wp, o, dtype=torch.float32, k=3):
-    x = torch.randn((b, c, hp, wp), generator=gen, device="cuda").to(dtype)
-    return kernel_operands(x, torch.randn((o, c, k, k), generator=gen, device="cuda") * 0.05)
+def _int8_site(gen, b, c, h, w, o, dtype=torch.float32):
+    """(x, s, w_q, w_scale, d) of one int8 site on the card."""
+    x = (torch.randn((b, c, h, w), generator=gen, device="cuda") * 3).to(dtype)
+    s = torch.randn((b, c), generator=gen, device="cuda")
+    d = torch.rand((b, o), generator=gen, device="cuda") + 0.5
+    w_q, w_scale = quantize_weight(torch.randn((o, c, 3, 3), generator=gen, device="cuda") * 0.05)
+    return x, s, w_q, w_scale, d
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pad_mode", ["zero", "reflect"])
 @pytest.mark.parametrize(
-    ("b", "c", "hp", "wp", "o", "k"),
+    ("b", "c", "h", "w", "o"),
     [
-        (1, 32, 5, 7, 8, 3),  # C = 32, one block, most of it out of range
-        (2, 64, 19, 23, 70, 3),  # M and O no multiple of the tile (O > 64: 128-wide tiles)
-        (3, 32, 11, 40, 129, 3),  # O one past a tile
-        (1, 128, 34, 18, 64, 3),  # the 64-wide tile
-        (2, 256, 10, 10, 256, 3),  # the decoder's resnet width
-        (2, 64, 9, 9, 16, 1),  # a 1x1 conv
+        (1, 32, 3, 5, 8),  # C = 32, one block, most of it out of range; odd H and W
+        (2, 64, 17, 21, 70),  # rows, columns and O off the tiles (O > 64: 128-wide N)
+        (3, 32, 9, 38, 129),  # O one past a tile
+        (1, 128, 32, 16, 64),  # the 64-wide N tile
+        (2, 256, 8, 64, 256),  # the decoder's resnet width
+        (2, 32, 9, 131, 40),  # three column strips, the last of 3 columns
+        (2, 64, 12, 128, 300),  # two N tiles
     ],
 )
-def test_int8_conv_kernel_is_the_plain_version_bitwise(cuda, b, c, hp, wp, o, k, dtype):
-    """Integer sums are exact in any order and the rescale rounds as the
-    plain version's: the kernel's output is bitwise equal to it."""
-    codes = _int8_codes(cuda, b, c, hp, wp, o, dtype, k)
-    before = int8_conv_codes.launches
-    got = int8_conv_codes(*codes)
-    again = int8_conv_codes(*codes)
-    want = int8_conv_plain(*codes)
+def test_int8_conv_kernel_is_the_plain_version_bitwise(cuda, b, c, h, w, o, pad_mode, dtype):
+    """Both kernels of an int8 site against their plain versions: the
+    largest |value| and integer sums are exact in any order and every
+    rounding is the plain version's. Also the unmodulated, unpadded float32
+    case that ops/quantize.int8_conv takes."""
+    x, s, w_q, w_scale, d = _int8_site(cuda, b, c, h, w, o, dtype)
+    kw = {"padding": 1, "pad_mode": pad_mode, "dtype": dtype}
+    before = (int8_prepass.launches, fused_int8_conv.launches)
+    got = modulated_int8_conv(x, s, w_q, w_scale, d, **kw)
+    again = modulated_int8_conv(x, s, w_q, w_scale, d, **kw)
+    want = modulated_int8_conv_plain(x, s, w_q, w_scale, d, **kw)
     torch.cuda.synchronize()
-    assert int8_conv_codes.launches == before + 2
-    assert got.shape == want.shape == (b, o, hp - k + 1, wp - k + 1)
+    assert (int8_prepass.launches, fused_int8_conv.launches) == (before[0] + 2, before[1] + 2)
+    assert got.shape == want.shape == (b, o, h, w) and got.dtype == dtype
     assert torch.equal(got, want) and torch.equal(got, again)
+    flat = {"padding": 0, "pad_mode": "zero", "dtype": torch.float32}
+    assert torch.equal(modulated_int8_conv(x, None, w_q, w_scale, None, **flat),
+                       modulated_int8_conv_plain(x, None, w_q, w_scale, None, **flat))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 32, 3, 5), (64, 256, 16, 8), (3, 64, 7, 9)])
+def test_int8_prepass_kernel_is_the_plain_version_bitwise(cuda, shape, dtype):
+    x = (torch.randn(shape, generator=cuda, device="cuda") * 5).to(dtype)
+    s = torch.randn(shape[:2], generator=cuda, device="cuda")
+    x[-1] = 0  # an all-zero sample: the scale floors at 1e-12 / 127
+    for act in (torch.float32, torch.bfloat16):
+        for style in (s, None):
+            got = int8_prepass(x, style, act)
+            assert torch.equal(got, int8_prepass_plain(x, style, act))
+            assert torch.equal(got, int8_prepass(x, style, act))
 
 
 def test_int8_conv_on_the_card_is_the_cpu_plain_version(cuda):
-    """The float API on the card (quantise, channels-last codes, the kernel)
-    against the CPU's plain path on the same inputs, scales and codes
-    first: the scales are divisions on both (a division by a Python number
-    on the card multiplies by a rounded reciprocal, one ulp off for some
-    of these 64 samples and 128 channels)."""
-    x = torch.randn((64, 32, 12, 10), generator=cuda, device="cuda")
+    """The site on the card against the CPU's plain version on the same
+    inputs, scales and codes first: the scales are divisions on both (a
+    division by a Python number on the card multiplies by a rounded
+    reciprocal, one ulp off for some of these 64 samples and 128
+    channels)."""
+    x, s, w_q, w_scale, d = _int8_site(cuda, 64, 32, 12, 10, 128)
     x = x * torch.rand((64, 1, 1, 1), generator=cuda, device="cuda") * 10
     w = torch.randn((128, 32, 3, 3), generator=cuda, device="cuda") * 0.1
     for fn, t in ((quantize_activations, x), (quantize_weight, w)):
         for got, want in zip(fn(t), fn(t.cpu()), strict=True):
             assert torch.equal(got.cpu(), want)
     assert torch.equal(int8_conv(x, w).cpu(), int8_conv(x.cpu(), w.cpu()))
+    for pad_mode in ("zero", "reflect"):
+        kw = {"padding": 1, "pad_mode": pad_mode, "dtype": torch.float32}
+        got = modulated_int8_conv(x, s, w_q, w_scale, d, **kw).cpu()
+        cpu = [t.cpu() for t in (x, s, w_q, w_scale, d)]
+        assert torch.equal(got, modulated_int8_conv(*cpu, **kw))
 
 
 def test_int8_conv_raises_instead_of_falling_back(cuda):
-    xq, wq, xs, ws = _int8_codes(cuda, 2, 64, 8, 8, 16)
-    before = int8_conv_codes.launches
+    x, s, w_q, w_scale, d = _int8_site(cuda, 2, 64, 8, 8, 16)
+    xs = int8_prepass(x, s, torch.float32)
+    kw = {"padding": 1, "pad_mode": "zero", "dtype": torch.float32}
+    before = fused_int8_conv.launches
+    x48, s48, w48, ws48, d48 = _int8_site(cuda, 2, 48, 8, 8, 16)
     with pytest.raises(ValueError, match="multiples of 32"):
-        int8_conv_codes(*_int8_codes(cuda, 2, 48, 8, 8, 16))
+        fused_int8_conv(x48, s48, int8_prepass(x48, s48, torch.float32), w48, ws48, d48, **kw)
     with pytest.raises(ValueError, match="contiguous"):
-        int8_conv_codes(xq.transpose(1, 2), wq, xs, ws)
-    with pytest.raises(TypeError, match="int8"):
-        int8_conv_codes(xq.float(), wq, xs, ws)
+        fused_int8_conv(x.transpose(2, 3), s, xs, w_q, w_scale, d, **kw)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fused_int8_conv(x.half(), s, xs, w_q, w_scale, d, **kw)
+    with pytest.raises(ValueError, match="weight codes must be int8"):
+        fused_int8_conv(x, s, xs, w_q.float(), w_scale, d, **kw)
     with pytest.raises(ValueError, match="tensors on"):
-        int8_conv_codes(xq, wq, xs.cpu(), ws)
-    misaligned = torch.empty(xq.numel() + 1, dtype=torch.int8, device="cuda")[1:]
+        fused_int8_conv(x, s, xs.cpu(), w_q, w_scale, d, **kw)
+    with pytest.raises(ValueError, match="padding 2"):
+        fused_int8_conv(x, s, xs, w_q, w_scale, d, padding=2, pad_mode="zero",
+                        dtype=torch.float32)
+    with pytest.raises(ValueError, match="weight codes"):
+        fused_int8_conv(x, s, xs, w_q[:, :, :1, :1].contiguous(), w_scale, d, **kw)
+    misaligned = torch.empty(x.numel() + 1, dtype=torch.float32, device="cuda")[1:]
     with pytest.raises(ValueError, match="16-byte boundary"):
-        int8_conv_codes(misaligned.view(xq.shape), wq, xs, ws)
-    assert int8_conv_codes.launches == before
+        fused_int8_conv(misaligned.view(x.shape), s, xs, w_q, w_scale, d, **kw)
+    assert fused_int8_conv.launches == before

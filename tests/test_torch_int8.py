@@ -4,10 +4,12 @@ At the tiny test config (``tests/helpers.write_tiny_config``: 32x32,
 min_latent 16, 3 resnet blocks: a decoder of 2 modulated resnet blocks at
 128 channels and one upsample conv 128 -> 64, 5 int8 convs), the JAX
 parameters of the f32 tree are carried into the port, and both packages
-run the same inputs. On the CPU the port's ``int8_conv`` takes the
-kernel's plain version (``ops/cuda/int8_conv.py``); the kernel itself is
-held to that plain version bitwise on the card (``tests/test_torch_cuda.py``,
-``chip_smoke.py`` phase 18).
+run the same inputs. On the CPU the port's ``int8_conv`` and each int8
+site of the decoder (``ops/cuda/int8_conv.py::modulated_int8_conv``) take
+the kernels' plain versions; the kernels themselves (an amax pre-pass
+and the fused modulated conv) are held to those plain versions bitwise
+on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 18).
+Here the fused plain version is held bitwise to the steps it fuses.
 
 Tolerances. Codes, scales and the int8 conv of the same float inputs are
 bitwise JAX's: the same divisions, roundings and exact integer sums. The
@@ -44,6 +46,7 @@ from one_to_many_gan_torch.ops import int8_conv as port_int8_conv
 from one_to_many_gan_torch.ops import modulated as port_modulated
 from one_to_many_gan_torch.ops import quantize_activations as port_qa
 from one_to_many_gan_torch.ops import quantize_weight as port_qw
+from one_to_many_gan_torch.ops.cuda import int8_conv as port_fused
 from one_to_many_gan_torch.ops.equalized import pad2d as port_pad2d
 from one_to_many_gan_torch.ops.modulated import ModulatedConv as PortModulatedConv
 from one_to_many_gan_tpu.config import load_config as jax_load_config
@@ -186,25 +189,85 @@ def test_int8_conv_error_bound_and_rms():
     assert rms < 0.02
 
 
+# -------------------------------------- (c) the fused conv's plain version
+
+
+def _composed(x, s, w_q, w_scale, d, padding, pad_mode, dtype):
+    """The steps the fused conv fuses, one torch op each: modulate, pad,
+    quantise, the int8 conv, rescale, cast, demodulate."""
+    v = x.to(dtype) if s is None else x.to(dtype) * s[:, :, None, None].to(dtype)
+    codes, x_scale = port_qa(port_pad2d(v, padding, pad_mode))
+    y = port_fused.int8_conv_plain(codes.permute(0, 2, 3, 1), w_q.permute(0, 2, 3, 1), x_scale,
+                                   w_scale).to(dtype)
+    return y if d is None else y * d[:, :, None, None].to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pad_mode", ["zero", "reflect"])
+@pytest.mark.parametrize(("b", "c", "h", "w", "o"), [(2, 32, 5, 7, 8), (1, 64, 9, 4, 70),
+                                                     (3, 32, 3, 11, 3)])
+def test_fused_plain_is_the_composed_steps_bitwise(b, c, h, w, o, pad_mode, dtype):
+    rng = np.random.default_rng(b * 100 + h)
+    x = torch.from_numpy(rng.normal(size=(b, c, h, w)).astype(np.float32) * 3).to(dtype)
+    s = torch.from_numpy(rng.normal(size=(b, c)).astype(np.float32))
+    d = torch.from_numpy(rng.uniform(0.5, 2.0, size=(b, o)).astype(np.float32))
+    w_q, w_scale = port_qw(torch.from_numpy(rng.normal(size=(o, c, 3, 3)).astype(np.float32)))
+    want = _composed(x, s, w_q, w_scale, d, 1, pad_mode, dtype)
+    got = port_fused.modulated_int8_conv(x, s, w_q, w_scale, d, padding=1, pad_mode=pad_mode,
+                                         dtype=dtype)
+    assert got.dtype == dtype and got.shape == (b, o, h, w)
+    assert torch.equal(got, want)
+    assert torch.equal(got, port_fused.modulated_int8_conv_plain(
+        x, s, w_q, w_scale, d, padding=1, pad_mode=pad_mode, dtype=dtype))
+    # no modulation, no padding, no demodulation, float32 out: int8_conv
+    flat = port_fused.modulated_int8_conv(x, None, w_q, w_scale, None, padding=0,
+                                          pad_mode="zero", dtype=torch.float32)
+    assert torch.equal(flat, _composed(x, None, w_q, w_scale, None, 0, "zero", torch.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pad_mode", ["zero", "reflect"])
+def test_prepass_scale_is_jax_scale_of_the_padded_tensor(pad_mode, dtype):
+    """The pre-pass reads the unpadded modulated input: its scale is JAX's
+    of the padded one, bitwise (neither pad changes the largest |v|). The
+    shapes are test_int8_conv_is_jax_bitwise_on_padded_inputs', so JAX
+    compiles nothing new."""
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(size=(2, 64, 12, 9)).astype(np.float32))
+    s = torch.from_numpy(rng.normal(size=(2, 64)).astype(np.float32) * 4)
+    pdt = getattr(torch, dtype)
+    v = port_fused.modulate_plain(x, s, pdt)
+    jxp = jax_pad2d(jnp.asarray(_nhwc(v)).astype(dtype), 1, pad_mode)
+    got = port_fused.int8_prepass(x, s, pdt)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_qa(jxp)[1]))
+    assert torch.equal(got, port_fused.int8_prepass_plain(x, s, pdt))
+
+
 # ------------------------------------ (d) the modulated conv and the decode
 
 
 @contextlib.contextmanager
 def _taps(monkeypatch):
     """Record the padded float input of every int8 conv, in call order, on
-    both sides: ``{"jax": [...], "port": [...]}`` as NHWC float32 arrays."""
+    both sides: ``{"jax": [...], "port": [...]}`` as NHWC float32 arrays.
+    The port's int8 sites take the unpadded input and the style
+    (``modulated_int8_conv``): the tap forms the modulated, padded tensor
+    that the fused conv quantises."""
     seen = {"jax": [], "port": []}
 
     def jax_tap(x, w, stride=1):
         seen["jax"].append(_jax_f32(x))
         return jax_int8_conv(x, w, stride)
 
-    def port_tap(x, w):
-        seen["port"].append(_nhwc(x))
-        return port_int8_conv(x, w)
+    def port_tap(x, s, w_q, w_scale, d, *, padding, pad_mode, dtype):
+        vp = port_pad2d(port_fused.modulate_plain(x, s, dtype), padding, pad_mode)
+        seen["port"].append(_nhwc(vp))
+        return port_fused.modulated_int8_conv(x, s, w_q, w_scale, d, padding=padding,
+                                              pad_mode=pad_mode, dtype=dtype)
 
     monkeypatch.setattr(jax_modulated, "int8_conv", jax_tap)
-    monkeypatch.setattr(port_modulated, "int8_conv", port_tap)
+    monkeypatch.setattr(port_modulated, "modulated_int8_conv", port_tap)
     yield seen
 
 
