@@ -370,6 +370,27 @@ P_D_WARPS, P_G_WARPS, P_G_WARP_BWDS = 2, 1, 1
 P_BARE_STEPS, P_BARE_WARMUP = 18, 2
 P_STEPS, P_LOG, P_CKPT, P_EVAL_IMAGES = 32, 8, 16, 64
 P_EMA_REPS = 20
+# Phase 19: the split instance norm at the 32 IN sites of a 512^2 step of
+# the production config as data 2 x spatial 2 runs it (16 images a data
+# row: the D phase's encode at 16 and trunk at 32; the G phase's encode at
+# 32 and three trunk passes at 16), cut into S = 2 and 4 bands of rows
+# (the trunk's 254, 126 and 62 rows give bands of 127, 63 and 31 rows, and
+# of 63/64, 31/32 and 15/16), the bands' partials combined on one card in
+# place of the all-gather; then 2 banded fused steps (a path step and
+# another) at phase 11's config.
+SP_SPLITS = (2, 4)
+SP_IN_SITES = ([(16, *s) for s in _ENCODE_512] + [(32, *s) for s in _TRUNK_512]
+               + [(32, *s) for s in _ENCODE_512] + [(16, *s) for s in _TRUNK_512] * 3)
+SP_IN_REPS = 10
+SP_STEPS = 2
+# 19b's gradients against the step without a group, kinks pinned: the
+# banded convs run on windows of padded rows whose shapes differ from the
+# whole pass's, so cuDNN sums them in other orders (the zero-padded convs
+# take their H padding as rows, their W padding as the conv's). Read on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 6): 3.54e-4 of a
+# leaf's largest entry (the encoder's stem weight, a sum over every pixel
+# of the batch). Limit 1e-3.
+SP_GRAD_RTOL = 1e-3
 # Card against CPU, one float32 R1 term (batch 4, 256x256, TF32 off) and
 # its gradient in every discriminator parameter, against a float64 pass on
 # the CPU with the float64 pass's kink pattern pinned (as phase 12). The
@@ -3279,6 +3300,220 @@ def phase_data_parallel(torch) -> dict:
             prof["busy_ms"], "idle_share": prof["idle_share"], "allreduce": allreduce}
 
 
+# ---------------------------------------------------------------- phase 19
+
+
+def _split_norm(torch, x, spatial: int, relu: bool, kernel: bool):
+    """The split instance norm of ``x`` cut into ``spatial`` bands of rows
+    on one card: every band's partials, stacked in band order in place of
+    the all-gather, then every band's apply. -> (output, partials)."""
+    from one_to_many_gan_torch.ops.cuda import instance_norm as in_module
+    from one_to_many_gan_torch.parallel import halo
+
+    part = in_module.instance_norm_partials if kernel else in_module.partials_plain
+    apply = in_module.instance_norm_apply if kernel else in_module.apply_plain
+    bands = [x[:, :, lo:hi].contiguous()
+             for lo, hi in (halo.band(x.shape[2], spatial, t) for t in range(spatial))]
+    gathered = torch.stack([part(b) for b in bands])
+    return torch.cat([apply(b, gathered, relu=relu) for b in bands], 2), gathered
+
+
+def _split_sites(torch) -> dict:
+    """19a: the split form at SP_IN_SITES, float32 and bfloat16, S = 2 and
+    4: against its plain version and the whole-plane kernel, two launches
+    bitwise equal; in bfloat16, one band's partials and apply timed (cold
+    L2) beside the whole-plane kernel, ``F.instance_norm`` of the whole
+    site, the library calls of each launch's work (``torch.var_mean``;
+    ``F.batch_norm`` with the combined statistics) and the bytes bounds."""
+    import torch.nn.functional as F
+
+    from one_to_many_gan_torch.ops.cuda import fused_instance_norm
+    from one_to_many_gan_torch.ops.cuda import instance_norm as in_module
+    from one_to_many_gan_torch.ops.cuda.instance_norm import plan
+    from one_to_many_gan_torch.parallel import halo
+
+    gen = torch.Generator("cuda").manual_seed(19)
+    flush = torch.zeros(128 * 2**20, dtype=torch.uint8, device="cuda")
+    cases = []
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for b, c, h, w, relu in sorted(set(SP_IN_SITES)):
+            x = (torch.randn((b, c, h, w), generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+            whole = fused_instance_norm(x, relu=relu)
+            for spatial in SP_SPLITS:
+                got, gathered = _split_norm(torch, x, spatial, relu, kernel=True)
+                again, _ = _split_norm(torch, x, spatial, relu, kernel=True)
+                plain, _ = _split_norm(torch, x, spatial, relu, kernel=False)
+                torch.cuda.synchronize()
+                case = {"dtype": dtype_name, "b": b, "c": c, "h": h, "w": w, "relu": relu,
+                        "spatial": spatial,
+                        "band_rows": [hi - lo for lo, hi in (halo.band(h, spatial, t)
+                                                             for t in range(spatial))],
+                        "max_abs_err": (got.float() - plain.float()).abs().max().item(),
+                        "vs_whole_kernel": (got.float() - whole.float()).abs().max().item(),
+                        "repeat_bitwise_equal": torch.equal(got, again), "tol": IN_TOL[dtype_name]}
+                check(case["repeat_bitwise_equal"], f"two split IN launches differ: {case}")
+                check(max(case["max_abs_err"], case["vs_whole_kernel"]) <= case["tol"],
+                      f"split IN off its plain version or the whole-plane kernel: {case}")
+                if dtype == torch.bfloat16:
+                    lo, hi = halo.band(h, spatial, 0)
+                    x0 = x[:, :, lo:hi].contiguous()
+                    layout = plan(b * c, (hi - lo) * w, dtype)
+                    mean, var = in_module.combine_plain(gathered, True)
+                    case["plan"] = layout.__dict__
+                    case.update(time_cold_ms(torch, {
+                        "partials_ms": lambda t: in_module.instance_norm_partials(t),
+                        "apply_ms": lambda t, r=relu: in_module.instance_norm_apply(
+                            t, gathered, relu=r),
+                        "plain_partials_ms": lambda t: in_module.partials_plain(t),
+                        "plain_apply_ms": lambda t, r=relu: in_module.apply_plain(
+                            t, gathered, relu=r),
+                        "library_partials_ms": lambda t: torch.var_mean(
+                            t, dim=(2, 3), correction=0),
+                        "library_apply_ms": lambda t: F.batch_norm(
+                            t.view(1, b * c, hi - lo, w), mean, var, training=False),
+                        "whole_kernel_ms": lambda t, r=relu: fused_instance_norm(x, relu=r),
+                        "whole_library_ms": lambda t: F.instance_norm(x),
+                    }, x0, flush, reps=SP_IN_REPS))
+                    band_bytes = x0.numel() * x0.element_size()
+                    case["partials_bound_ms"] = ((band_bytes + (b * c + 1) * 8)
+                                                 / HBM_BYTES_PER_S * 1e3)
+                    case["apply_bound_ms"] = ((2 * band_bytes + gathered.numel() * 4)
+                                              / HBM_BYTES_PER_S * 1e3)
+                    log(f"split IN bf16 S={spatial} B={b} [{c},{h},{w}] relu={int(relu)} "
+                        f"band {hi - lo} rows {layout.variant}/{layout.planes_per_block}/"
+                        f"{layout.cluster}: err {case['max_abs_err']:.3g}, vs whole "
+                        f"{case['vs_whole_kernel']:.3g}; band ms partials "
+                        f"{case['partials_ms']:.4f} + apply {case['apply_ms']:.4f} (bounds "
+                        f"{case['partials_bound_ms']:.4f} + {case['apply_bound_ms']:.4f}); "
+                        f"whole-plane kernel {case['whole_kernel_ms']:.4f}, F.instance_norm "
+                        f"{case['whole_library_ms']:.4f}")
+                cases.append(case)
+                del got, again, plain, gathered
+            del x, whole
+    del flush
+    torch.cuda.empty_cache()
+    keys = ("partials_ms", "apply_ms", "plain_partials_ms", "plain_apply_ms",
+            "library_partials_ms", "library_apply_ms", "whole_kernel_ms", "whole_library_ms",
+            "partials_bound_ms", "apply_bound_ms")
+    per_step = {}
+    for spatial in SP_SPLITS:
+        table = {(k["b"], k["c"], k["h"], k["w"], k["relu"]): k for k in cases
+                 if k["dtype"] == "bfloat16" and k["spatial"] == spatial}
+        per_step[spatial] = {key: sum(table[site][key] for site in SP_IN_SITES) for key in keys}
+        t = per_step[spatial]
+        log(f"  32 sites of a 2x2 step, bf16, one card's band at S={spatial}: partials "
+            f"{t['partials_ms']:.4f} + apply {t['apply_ms']:.4f} = "
+            f"{t['partials_ms'] + t['apply_ms']:.4f} ms (bounds {t['partials_bound_ms']:.4f} + "
+            f"{t['apply_bound_ms']:.4f}; plain {t['plain_partials_ms']:.4f} + "
+            f"{t['plain_apply_ms']:.4f}; var_mean + batch_norm {t['library_partials_ms']:.4f} + "
+            f"{t['library_apply_ms']:.4f}); whole sites: kernel {t['whole_kernel_ms']:.4f}, "
+            f"F.instance_norm {t['whole_library_ms']:.4f}")
+    return {"cases": cases, "per_step_bf16": per_step,
+            "max_abs_err_f32": max(k["max_abs_err"] for k in cases if k["dtype"] == "float32"),
+            "max_abs_err_bf16": max(k["max_abs_err"] for k in cases
+                                    if k["dtype"] == "bfloat16")}
+
+
+def _banded_steps(torch) -> dict:
+    """19b: the fused step on the spatial path with a world of one card
+    over NCCL, whose spatial group holds that card alone (every conv, FIR
+    and pad through ``halo.window``, every instance norm the split form
+    with a one-rank all-gather), at phase 11's config in float32 (TF32
+    off, deterministic kernels), SP_STEPS steps against the same steps
+    without a group, each from the same state, with the no-group step's
+    ReLU / LeakyReLU pattern pinned (the banded convs run on padded rows,
+    which cuDNN sums in another order; ``ops/activations.py``); its
+    launches."""
+    import torch.distributed as dist
+
+    from one_to_many_gan_torch import train
+    from one_to_many_gan_torch.core.train_step import (
+        Batches,
+        draw_step,
+        make_train_step,
+        synthetic_batch,
+    )
+    from one_to_many_gan_torch.device import use_deterministic_kernels
+    from one_to_many_gan_torch.migrate import from_reference_checkpoint, to_reference_checkpoint
+    from one_to_many_gan_torch.ops import activations
+    from one_to_many_gan_torch.ops.cuda import fused_instance_norm, warp, warp_bwd
+    from one_to_many_gan_torch.ops.cuda import instance_norm as in_module
+    from one_to_many_gan_torch.parallel import distributed, halo
+
+    config = d_phase_config("float32", D_BATCH, path_interval=G_INTERVAL)
+    lr = config["optimisation"]["learning_rate"]
+    counters = (warp, warp_bwd, fused_instance_norm, in_module.instance_norm_partials,
+                in_module.instance_norm_apply)
+    group = distributed.ensure_initialized(
+        "cuda", rank=0, world_size=1,
+        init_method=f"tcp://127.0.0.1:{distributed._free_port()}")
+    group.spatial = halo.Spatial(1, 0, [0])
+    try:
+        with _determinism_restored(torch):
+            use_deterministic_kernels()
+            models, state, gen = train.setup(config, seed=0, ada_p=D_ADA_P, device="cuda")
+            step_fn = make_train_step(config, models)
+            g_models, g_state, _ = train.setup(config, seed=1, ada_p=D_ADA_P, device="cuda")
+            g_step_fn = make_train_step(config, g_models, group)
+            refs = []
+            for _ in range(SP_STEPS):
+                start = to_reference_checkpoint(state)
+                batches = Batches(*(synthetic_batch(gen, D_BATCH, (D_SIZE, D_SIZE), 1)
+                                    for _ in range(4)))
+                draws = draw_step(gen, config, models)
+                with activations.record() as kinks:
+                    state, metrics = step_fn(state, batches, draws)
+                refs.append((start, batches, draws, _snapshot_step(torch, state, metrics, 1),
+                             kinks.masks))
+            for c in counters:  # the main path of this phase: the banded steps
+                c.launches = 0
+            errs, launches, step_ms, flips = [], [], [], []
+            for k, (start, batches, draws, want, masks) in enumerate(refs):
+                g_state = from_reference_checkpoint(start, g_state, step=k)
+                c0 = [c.launches for c in counters]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with activations.pin(masks) as pinned:
+                    g_state, g_metrics = g_step_fn(g_state, batches, draws)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                check(len(pinned.flips) == len(masks), "the banded step ran other activations")
+                flips.append([pinned.n_flips(), sum(m.numel() for m in masks)])
+                launches.append(_phase_counts(counters, c0))
+                errs.append(compare_steps(torch, _snapshot_step(torch, g_state, g_metrics, 1),
+                                          want, lr, first=k == 0, grad_rtol=SP_GRAD_RTOL,
+                                          label=f"banded step on one card, step {k}"))
+            total = dict(zip(("warp_fwd", "warp_bwd", "instance_norm", "split_partials",
+                              "split_apply"), (c.launches for c in counters), strict=True))
+            del refs, models, state, step_fn, g_models, g_state, g_step_fn
+            torch.cuda.empty_cache()
+        want = [G_WARPS_PER_STEP, G_WARP_BWDS_PER_STEP, 0, G_IN_PER_STEP, G_IN_PER_STEP]
+        check(all(c == want for c in launches), f"banded steps launched {launches} (want {want})")
+    finally:
+        group.close()
+        dist.destroy_process_group()
+    worst = {key: max(e[key] for e in errs) for key in errs[0] if key != "grad_worst"}
+    worst["held_share"] = min(e["held_share"] for e in errs)
+    worst["grad_worst"] = [e["grad_worst"] for e in errs]
+    log(f"banded fused step, a spatial group of one card ({D_SIZE}x{D_SIZE}, batch {D_BATCH}, "
+        f"float32, {SP_STEPS} steps against no group): metrics {worst['metric_rel']:.3g} "
+        f"relative, gradients {worst['grad_rel']:.3g} of each leaf's largest entry (worst "
+        f"{worst['grad_worst']}; limit {SP_GRAD_RTOL}), parameters "
+        f"{worst['param_err_held']:.3g} where held ({worst['held_share']:.4f}), its kinks "
+        f"pinned (flips, inputs per step {flips}); step ms (pinned) "
+        f"{[round(t, 2) for t in step_ms]}; launches {total}")
+    return {"launches": total, "per_step": launches, "errors": errs, "step_ms": step_ms,
+            "flips": flips}
+
+
+def phase_split_norm(torch) -> dict:
+    """19. The split instance norm on one card (19a), and the spatial path
+    that launches it (19b)."""
+    out = {"sites": _split_sites(torch), "steps": _banded_steps(torch)}
+    log("phase 19 ok")
+    return out
+
+
 # ---------------------------------------------------------------- phase 18
 
 
@@ -3747,6 +3982,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["int8_kernel"] = phase_int8_kernel(torch, config, source)
     report["int8_serve"] = phase_int8_serve(torch, config, source)
+    torch.cuda.empty_cache()
+    report["split_norm"] = phase_split_norm(torch)
 
     fused = report["fused_step"]["launches"]
     enc = report["kernels"]["per_encode"]["float32_b1"]
@@ -3910,6 +4147,37 @@ def main() -> int:
         "launches_by_phase": {"int8 serving (phase 18b)": i8_launches["int8_conv"]},
         "checked_in": "phase 18a",
     })
+    split, split_steps = report["split_norm"]["sites"], report["split_norm"]["steps"]
+    sp2 = split["per_step_bf16"][2]
+    split_per = ("one card's band of the 32 sites of a 512^2 step of the production config as "
+                 "data 2 x spatial 2 runs it (S = 2), bfloat16, one call each, cold L2")
+    for name, kind, library in (("instance_norm_split_partials", "partials",
+                                 "torch.var_mean of the band"),
+                                ("instance_norm_split_apply", "apply",
+                                 "F.batch_norm of the band with the combined statistics")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "one_to_many_gan_torch/csrc/instance_norm.cu",
+            "replaces": IN_REPLACES + " (its plane statistics and normalisation, for a plane "
+                        "split into bands of rows)",
+            "launches": split_steps["launches"][f"split_{kind}"],
+            "max_abs_err": split["max_abs_err_f32"],
+            "ms": sp2[f"{kind}_ms"],
+            "plain_ms": sp2[f"plain_{kind}_ms"],
+            "bound_ms": sp2[f"{kind}_bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": sp2[f"library_{kind}_ms"],
+            "per": split_per + f"; library: {library}",
+            "at_spatial_4": {k: v for k, v in split["per_step_bf16"][4].items()
+                             if k.startswith((kind, f"plain_{kind}", f"library_{kind}"))},
+            "whole_sites_kernel_ms": sp2["whole_kernel_ms"],
+            "whole_sites_f_instance_norm_ms": sp2["whole_library_ms"],
+            "max_abs_err_bf16": split["max_abs_err_bf16"],
+            "launches_by_phase": {"banded fused steps, a spatial group of one card (phase 19b)":
+                                  split_steps["launches"][f"split_{kind}"]},
+            "checked_in": "phase 19a",
+        })
     report["wall_s"] = time.perf_counter() - t_start
     log(f"chip_smoke wall time {report['wall_s']:.1f} s")
     OUT.parent.mkdir(parents=True, exist_ok=True)

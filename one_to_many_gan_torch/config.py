@@ -6,10 +6,10 @@ defaults are filled in below. Of ``[tpu]`` the port reads ``precision``
 ("float32" or "bfloat16" activations) and, for training,
 ``ada_antialias``, ``ada_supersample``, ``path_interval``, ``ema_decay``,
 ``r1_gamma``, ``r1_interval``, ``remat``, ``remat_d``, ``split_phases``,
-``g_loss_split``, ``native_loader``, ``tensorboard`` and
-``data_parallel`` (``resolve_data_parallel``: N ranks, one card each);
-``check_training_options`` refuses ``spatial_parallel > 1``, which the
-port does not run yet. ``ada_pallas`` chooses between two TPU
+``g_loss_split``, ``native_loader``, ``tensorboard``, ``data_parallel``
+and ``spatial_parallel`` (``resolve_data_parallel``: ``data_parallel x
+spatial_parallel`` ranks, one card each, each image's rows split over
+the spatial ranks: ``parallel/halo.py``). ``ada_pallas`` chooses between two TPU
 implementations of the ADA warp; the port always computes the Pallas
 kernel's numerics, so it ignores the key; ``s2d_pack`` repacks the
 low-channel 3x3 convs space-to-depth for the TPU's matrix unit, the same
@@ -127,35 +127,39 @@ def n_downsamples(config: Config) -> int:
 
 
 def check_training_options(config: Config) -> None:
-    """Raise ``NotImplementedError``, naming the key, for a training option
-    the port does not run yet: ``spatial_parallel > 1``; ``ValueError`` for
-    a ``data_parallel`` that is neither -1 nor at least 1. Every other
-    training option runs: ``core/train_step.py``, ``core/trainer.py``,
-    ``data/``, ``parallel/`` and ``Models`` take them."""
+    """Raise ``ValueError`` for a ``data_parallel`` that is neither -1 nor
+    at least 1, or a ``spatial_parallel`` below 1. Every training option
+    runs: ``core/train_step.py``, ``core/trainer.py``, ``data/``,
+    ``parallel/`` and ``Models`` take them."""
     tpu = config["tpu"]
     dp = tpu["data_parallel"]
     if not isinstance(dp, int) or (dp != -1 and dp < 1):
         msg = f"tpu.data_parallel must be -1 (all visible cards) or >= 1, got {dp!r}"
         raise ValueError(msg)
-    if tpu["spatial_parallel"] > 1:
-        msg = (
-            f"tpu.spatial_parallel = {tpu['spatial_parallel']!r} is not ported to PyTorch "
-            "yet (see ROADMAP.md); set it to 1"
-        )
-        raise NotImplementedError(msg)
+    sp = tpu["spatial_parallel"]
+    if not isinstance(sp, int) or sp < 1:
+        msg = f"tpu.spatial_parallel must be an int >= 1, got {sp!r}"
+        raise ValueError(msg)
 
 
 def resolve_data_parallel(config: Config, n_devices: int) -> int:
-    """The number of data-parallel ranks ``config`` asks for on a host with
-    ``n_devices`` cards (the JAX package's Trainer and ``make_mesh``):
-    -1 takes every card; a value that does not divide ``batch_size`` is
-    clamped to the largest one that does, with a warning; more ranks than
-    cards raise ``ValueError`` (never fewer cards than asked for)."""
+    """The number of data-parallel ranks (data rows) ``config`` asks for on
+    a host with ``n_devices`` cards, as the JAX package's Trainer and
+    ``make_mesh`` resolve it: ``spatial_parallel`` must divide the cards;
+    -1 takes ``n_devices // spatial_parallel``; a value that does not
+    divide ``batch_size`` is clamped to the largest one that does, with a
+    warning; ``data_parallel x spatial_parallel`` over the cards raises
+    ``ValueError`` (never fewer cards than asked for). The run takes
+    ``data_parallel x spatial_parallel`` ranks."""
     check_training_options(config)
     dp = config["tpu"]["data_parallel"]
+    sp = config["tpu"]["spatial_parallel"]
     batch_size = config["training"]["batch_size"]
+    if n_devices % sp:
+        msg = f"tpu.spatial_parallel={sp} must divide the device count {n_devices}"
+        raise ValueError(msg)
     if dp == -1:
-        dp = n_devices
+        dp = n_devices // sp
     dp_req = dp
     while dp > 1 and batch_size % dp != 0:
         dp -= 1
@@ -165,7 +169,9 @@ def resolve_data_parallel(config: Config, n_devices: int) -> int:
             f"clamped to {dp}",
             stacklevel=2,
         )
-    if dp > n_devices:
-        msg = f"tpu.data_parallel={dp} needs {dp} devices, have {n_devices}"
+    if dp * sp > n_devices:
+        mesh = f"tpu.data_parallel={dp}" if sp == 1 else (
+            f"tpu.data_parallel={dp} x tpu.spatial_parallel={sp}")
+        msg = f"{mesh} needs {dp * sp} devices, have {n_devices}"
         raise ValueError(msg)
     return dp

@@ -80,6 +80,23 @@ means; so ADA's controller sees the global real-sign mean and ``p``, the
 parameters and the buffer stay identical on every rank.
 ``make_ada_update`` keeps the config's global ``batch_size``.
 
+**The spatial axis.** With a group whose ``spatial`` subgroup has ``S`` >
+1 ranks (``tpu.spatial_parallel``), the phases run under
+``halo.banded``: the batches are still this data row's whole images, of
+which every model pass takes this rank's band of rows, and every conv,
+FIR, pad and instance norm runs on the band and a halo fetched from the
+neighbouring bands (``parallel/halo.py``). The ranks of a spatial
+subgroup share their draws. The generator's fakes are gathered whole
+over the subgroup for the replay buffer (gathered over the data subgroup
+only) and ADA; ADA runs on whole images on every rank of the subgroup
+(the warp needs whole rows) and each rank keeps its band; in the G
+phase the band cotangents of the augmented translations are gathered and
+the warp's backward runs on whole images too (``halo.on_whole``). The
+losses sum over the bands (``losses.py``), and each rank differentiates
+``1 / S`` of them (``halo.share``), so ``reduce_gradients`` sums the
+bands' gradients and averages the data rows. A group with ``S`` = 1 and
+no group run exactly as before.
+
 ``tpu.ada_supersample`` takes the 2x supersampled warp in all three
 augment calls (the D phase's fakes and reals, the G phase's
 translations). ``tpu.remat`` ("none", "conv", "full"; ``ops/remat.py``)
@@ -126,6 +143,7 @@ from one_to_many_gan_torch.losses import (
 )
 from one_to_many_gan_torch.models import StyleRngs, apply_domain, draw_style_rngs
 from one_to_many_gan_torch.ops.remat import make_ckpt
+from one_to_many_gan_torch.parallel import halo
 
 
 class Batches(NamedTuple):
@@ -146,7 +164,7 @@ def batch_pack(xs, dim: int = 0) -> torch.Tensor:
 
 def batch_unpack(x: torch.Tensor, n: int, dim: int = 0) -> tuple[torch.Tensor, ...]:
     """Inverse of ``batch_pack``: the ``n`` interleaved groups."""
-    r = x.reshape(*x.shape[:dim], -1, n, *x.shape[dim + 1 :])
+    r = x.reshape(*x.shape[:dim], x.shape[dim] // n, n, *x.shape[dim + 1 :])
     return tuple(r.select(dim + 1, j) for j in range(n))
 
 
@@ -196,21 +214,27 @@ def _remat_modes(config: Config) -> tuple[str, str]:
     return g_mode, g_mode if d_mode == "same" else d_mode
 
 
+def _spatial(group) -> halo.Spatial | None:
+    return None if group is None else group.spatial
+
+
 def d_loss_and_grad(
-    discriminator, aug_fake: torch.Tensor, aug_real: torch.Tensor, ckpt=make_ckpt("none")
+    discriminator, aug_fake: torch.Tensor, aug_real: torch.Tensor, ckpt=make_ckpt("none"),
+    h: int | None = None,
 ):
     """One discriminator forward and backward on the packed [fake; real]
     batch (NHWC), the forward through ``ckpt`` (``ops/remat.py``). The
     gradients go to the parameters' ``.grad`` (set anew). -> (loss,
     real_scores, fake_scores), detached, scores NHWC in float32 (float64
-    for a float64 discriminator)."""
+    for a float64 discriminator). Under a spatial group: bands of images of
+    ``h`` rows."""
     discriminator.zero_grad(set_to_none=True)
     packed = batch_pack([aug_fake, aug_real]).permute(0, 3, 1, 2)
-    scores = ckpt(discriminator, packed)
+    scores = ckpt(discriminator, packed, h)
     scores = scores.to(torch.promote_types(scores.dtype, torch.float32)).permute(0, 2, 3, 1)
     fake_scores, real_scores = batch_unpack(scores, 2)
     loss = lsgan_d_loss(real_scores, fake_scores)
-    loss.backward()
+    halo.share(loss).backward()
     return loss.detach(), real_scores.detach(), fake_scores.detach()
 
 
@@ -218,8 +242,9 @@ def make_d_inputs(config: Config, models: Models, group=None):
     """-> ``d_inputs(state, d_shoeprints, d_shoemarks, draws)``: steps 1-3
     of the D phase, without gradient, at the ADA probability ``state.ada.p``
     -> (aug_fake, aug_real, buffer): the discriminator's augmented inputs
-    (NHWC, in the activation dtype) and the replay buffer after the push
-    (its images tensor is ``state.buffer``'s, updated in place)."""
+    (NHWC, in the activation dtype; under a spatial group, this rank's
+    bands of rows) and the replay buffer after the push (its images tensor
+    is ``state.buffer``'s, updated in place; whole images on every rank)."""
     check_training_options(config)
     aug_options = {"antialias": config["tpu"]["ada_antialias"],
                    "supersample": config["tpu"]["ada_supersample"]}
@@ -236,26 +261,30 @@ def make_d_inputs(config: Config, models: Models, group=None):
     ) -> tuple[torch.Tensor, torch.Tensor, BufferState]:
         p = state.ada.p
         s = state.mapping.style_vector(draws.style, n_blocks, mix_styles=True)
-        fakes = state.generator(_nchw(d_shoeprints, device), apply_domain(s, 1.0))
+        prints = halo.take_band(_nchw(d_shoeprints, device))
+        fakes = state.generator(prints, apply_domain(s, 1.0))
+        fakes = halo.gather_whole(fakes, models.image_size[0], kind="ada_fakes")
         fakes = fakes.float().permute(0, 2, 3, 1)
         buffered, buffer = buffer_apply(state.buffer, fakes, draws.buffer, group)
         aug_fake = augment(buffered.to(aug_dtype), p, draws.aug_fake, **aug_options)
         aug_real = augment(d_shoemarks.to(device, aug_dtype), p, draws.aug_real, **aug_options)
-        return aug_fake, aug_real, buffer
+        return halo.take_band(aug_fake, 1), halo.take_band(aug_real, 1), buffer
 
     return d_inputs
 
 
-def r1_loss_and_grad(discriminator, aug_real: torch.Tensor, gamma: float) -> torch.Tensor:
+def r1_loss_and_grad(discriminator, aug_real: torch.Tensor, gamma: float,
+                     h: int | None = None) -> torch.Tensor:
     """``gamma / 2 * r1_penalty`` on the augmented reals (NHWC) in float32
     (float64 for a float64 discriminator: a reference): its gradients are
     added to the discriminator's ``.grad`` (the head's bias has none: D's
-    gradient in its input does not depend on it); -> the term, detached."""
+    gradient in its input does not depend on it); -> the term, detached.
+    Under a spatial group: bands of images of ``h`` rows."""
     acc = torch.promote_types(aug_real.dtype, torch.float32)
     reals = aug_real.to(acc).permute(0, 3, 1, 2).contiguous()
     params = list(discriminator.parameters())
-    loss = (gamma / 2.0) * r1_penalty(discriminator, reals)
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    loss = (gamma / 2.0) * r1_penalty(discriminator, reals, h)
+    grads = torch.autograd.grad(halo.share(loss), params, allow_unused=True)
     for p, g in zip(params, grads, strict=True):
         if g is not None:
             p.grad.add_(g)
@@ -281,6 +310,8 @@ def make_d_phase(config: Config, models: Models, group=None):
     refuse_int8(models)
     d_inputs = make_d_inputs(config, models, group)
     ckpt_d = make_ckpt(_remat_modes(config)[1])
+    sp = _spatial(group)
+    rows = models.image_size[0] if sp is not None else None
     r1_gamma = config["tpu"]["r1_gamma"]
     r1_interval = config["tpu"]["r1_interval"]
     ada_cfg = config["ada"]
@@ -295,12 +326,16 @@ def make_d_phase(config: Config, models: Models, group=None):
         state: TrainState, d_shoeprints: torch.Tensor, d_shoemarks: torch.Tensor,
         draws: DPhaseDraws,
     ) -> tuple[TrainState, dict[str, torch.Tensor]]:
+        with halo.banded(sp):
+            return phase(state, d_shoeprints, d_shoemarks, draws)
+
+    def phase(state, d_shoeprints, d_shoemarks, draws):
         p_used = state.ada.p
         aug_fake, aug_real, state.buffer = d_inputs(state, d_shoeprints, d_shoemarks, draws)
         loss, real_scores, fake_scores = d_loss_and_grad(
-            state.discriminator, aug_fake, aug_real, ckpt_d)
+            state.discriminator, aug_fake, aug_real, ckpt_d, rows)
         if r1_gamma > 0 and state.step % r1_interval == 0:
-            loss = loss + r1_loss_and_grad(state.discriminator, aug_real, r1_gamma)
+            loss = loss + r1_loss_and_grad(state.discriminator, aug_real, r1_gamma, rows)
         sign_real = discriminator_confidence(real_scores)
         sign_fake = -discriminator_confidence(fake_scores)
         if group is not None:
@@ -392,13 +427,15 @@ def make_g_loss(config: Config, models: Models, group=None):
     ckpt = make_ckpt(_remat_modes(config)[0])
     n_blocks = models.n_style_blocks
     device = models.device
+    sp = _spatial(group)
+    rows = models.image_size[0] if sp is not None else None
 
     def encode(gen, prints, marks, draws):
         """-> (print latents, mark latents, KL) of the packed 2B encode."""
         latents = ckpt(gen.encode, batch_pack([prints, marks]))
         kl = kl_loss(latents, group)
         if draws.latent_noise is not None:
-            latents = latents + draws.latent_noise.permute(0, 3, 1, 2)
+            latents = latents + halo.take_band(draws.latent_noise.permute(0, 3, 1, 2))
         print_latent, mark_latent = batch_unpack(latents, 2)
         return print_latent, mark_latent, kl
 
@@ -407,7 +444,7 @@ def make_g_loss(config: Config, models: Models, group=None):
         gen, mapping, extractor = state.generator, state.mapping, state.extractor
         b = prints.shape[0]
         # styles are float32 (float64 in a float64 copy of the models)
-        mark_w = ckpt(extractor, marks)
+        mark_w = ckpt(extractor, marks, rows)
         w0 = torch.zeros((n_blocks, b, mark_w.shape[-1]), dtype=mark_w.dtype, device=device)
         w_t = mapping.style_vector(draws.style, n_blocks, mix_styles=True)
         out3 = ckpt(
@@ -422,10 +459,14 @@ def make_g_loss(config: Config, models: Models, group=None):
 
         # GAN: the translations augmented at p_used, scored by the
         # discriminator as the D phase left it.
-        aug = augment(generated.permute(0, 2, 3, 1), p_used, draws.aug, **aug_options)
-        gan = lsgan_g_loss(ckpt(state.discriminator, aug.permute(0, 3, 1, 2)).to(acc))
+        # Under a spatial group on whole images, of which each rank keeps
+        # its band.
+        aug = halo.on_whole(
+            lambda x: augment(x, p_used, draws.aug, **aug_options),
+            generated.permute(0, 2, 3, 1), rows, dim=1, kind="ada_translations")
+        gan = lsgan_g_loss(ckpt(state.discriminator, aug.permute(0, 3, 1, 2), rows).to(acc))
         # Style cycle: the style extracted back from the translations.
-        style = style_cycle_loss(w_t[-1], ckpt(extractor, generated))
+        style = style_cycle_loss(w_t[-1], ckpt(extractor, generated, rows))
         total = (
             gan
             + opt["identity_loss_lambda"] * idt_loss
@@ -459,21 +500,26 @@ def make_g_loss(config: Config, models: Models, group=None):
         state: TrainState, batches: Batches, draws: GPhaseDraws, p_used: torch.Tensor,
         path_step: bool,
     ) -> dict[str, torch.Tensor]:
+        with halo.banded(sp):
+            return loss_and_grad(state, batches, draws, p_used, path_step)
+
+    def loss_and_grad(state, batches, draws, p_used, path_step):
         gen, mapping, extractor = state.generator, state.mapping, state.extractor
-        prints = _nchw(batches.g_shoeprints, device)
-        marks = _nchw(batches.g_shoemarks, device)
+        prints = halo.take_band(_nchw(batches.g_shoeprints, device))
+        marks = halo.take_band(_nchw(batches.g_shoemarks, device))
         params = [p for m in (gen, mapping, extractor) for p in m.parameters()]
         with _frozen(state.discriminator):
             latents = encode(gen, prints, marks, draws)
             total, metrics = main_terms(state, prints, marks, draws, p_used, *latents)
             path = torch.zeros((), dtype=total.dtype, device=device)
             if split:
-                grads = list(torch.autograd.grad(total, params))
+                grads = list(torch.autograd.grad(halo.share(total), params))
                 if path_step:
                     print_latent, _, _ = encode(gen, prints, marks, draws)
                     path = path_term(state, draws, print_latent)
                     weighted = opt["path_loss_lambda"] * path * scale
-                    extra = torch.autograd.grad(weighted, params, allow_unused=True)
+                    extra = torch.autograd.grad(halo.share(weighted), params,
+                                                allow_unused=True)
                     grads = [g if e is None else g + e
                              for g, e in zip(grads, extra, strict=True)]
                     total = total + weighted
@@ -481,7 +527,7 @@ def make_g_loss(config: Config, models: Models, group=None):
                 if path_step:
                     path = path_term(state, draws, latents[0])
                     total = total + opt["path_loss_lambda"] * path * scale
-                grads = torch.autograd.grad(total, params)
+                grads = torch.autograd.grad(halo.share(total), params)
         for p, g in zip(params, grads, strict=True):
             p.grad = g
         return {"total_gen_loss": total.detach(), **metrics, "path_loss": path.detach()}

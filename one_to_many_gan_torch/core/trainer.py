@@ -62,9 +62,16 @@ the end writes the image grids, the validation FID/KID and a checkpoint.
   every rank. The checkpoint schema is one card's: a checkpoint of four
   ranks resumes on one card, and the reverse.
 
+- **Spatial parallelism** (``tpu.spatial_parallel`` = S > 1; the
+  group's ``spatial`` subgroup): the ``data_parallel x S`` ranks form
+  the JAX package's ("data", "spatial") grid. The S ranks of a data row
+  read the same rows of the global batch, and the step gives each its
+  band of rows of every image (``core/train_step.py``,
+  ``parallel/halo.py``). The state, the buffer included, stays whole and
+  identical on every rank, so checkpoints keep one card's schema: a 2x2
+  run resumes in one process and the reverse.
+
 ``tpu.compilation_cache_dir`` (a JAX compile cache) is ignored.
-``tpu.spatial_parallel > 1`` is refused by name
-(``config.check_training_options``).
 """
 
 from __future__ import annotations
@@ -206,12 +213,17 @@ class Trainer:
             ranks = distributed.data_parallel_ranks(config, self.models.device.type)
             if ranks > 1:
                 msg = (
-                    f"tpu.data_parallel = {config['tpu']['data_parallel']!r} runs {ranks} "
+                    f"tpu.data_parallel = {config['tpu']['data_parallel']!r} x "
+                    f"tpu.spatial_parallel = {config['tpu']['spatial_parallel']!r} runs {ranks} "
                     "ranks: train through `python -m one_to_many_gan_torch.train` (or "
                     "torchrun), or pass a parallel.DataParallel group"
                 )
                 raise ValueError(msg)
         else:
+            if group.spatial_ranks != config["tpu"]["spatial_parallel"]:
+                msg = (f"tpu.spatial_parallel = {config['tpu']['spatial_parallel']!r}, but the "
+                       f"group has {group.spatial_ranks} spatial ranks")
+                raise ValueError(msg)
             self.models = Models(config, device=group.device, seed=seed)
         self.device = self.models.device
 

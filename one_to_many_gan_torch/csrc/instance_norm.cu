@@ -52,6 +52,23 @@
 // bf16 path does: mean and rstd rounded to bf16, then
 // bf16(bf16(x - mean) * rstd). A NaN passes through the ReLU.
 //
+// The split form (a plane whose rows are split into bands over the ranks
+// of a spatial group, one_to_many_gan_torch/parallel/halo.py) runs the
+// same kernel in two more modes, on the same layouts of the band's
+// planes:
+//   partials  statistics of each plane's band: float32 its mean and its
+//             centred sum of squares (pass 1 and pass 2 over the on-chip
+//             copy), bfloat16 its sum and sum of squares (pass 1); block
+//             0 also writes the band's element count after the planes;
+//   apply     combines the partials of every band, gathered [S, planes +
+//             1, 2] in band order, in that fixed order (float32 by Chan's
+//             pairwise update: n, mean and centred sum; bfloat16 by
+//             summing the sums and squares, then the moment form), so
+//             that every rank gets bitwise the same statistics, then
+//             normalises the band (pass 3) as the whole-plane kernel
+//             does.
+// Between them the caller all-gathers the partials over the group.
+//
 // The bulk copy reads up to 15 bytes before and after a block's range,
 // inside the 16-byte-aligned chunks that hold its first and last
 // element; those bytes lie in the same page and allocation granule as
@@ -222,16 +239,59 @@ __device__ __forceinline__ float cluster_sum(cg::cluster_group& cluster, float* 
   return warp_sum(lane < size ? *cluster.map_shared_rank(slot, lane) : 0.f);
 }
 
+enum Mode { kWhole = 0, kPartials = 1, kApply = 2 };
+
+// The statistics of `plane` from the partials of `parts` bands, gathered
+// [parts, planes + 1, 2] (row `planes` of each band: its element count),
+// combined in band order -> (mean, biased variance).
+template <bool kMoments>
+__device__ __forceinline__ void combine(const float* __restrict__ gathered, int parts,
+                                        long long planes, long long plane, float* mean,
+                                        float* var) {
+  float n = 0.f, a = 0.f, b = 0.f;
+  for (int t = 0; t < parts; ++t) {
+    const float* g = gathered + static_cast<long long>(t) * (planes + 1) * 2;
+    const float nt = g[planes * 2];
+    const float pa = g[plane * 2];
+    const float pb = g[plane * 2 + 1];
+    if (kMoments) {
+      a = __fadd_rn(a, pa);
+      b = __fadd_rn(b, pb);
+      n = __fadd_rn(n, nt);
+    } else {
+      // Chan: a = mean, b = centred sum of squares of the first bands
+      const float nn = __fadd_rn(n, nt);
+      const float f = __fdiv_rn(nt, fmaxf(nn, 1.f));
+      const float delta = __fsub_rn(pa, a);
+      a = __fadd_rn(a, __fmul_rn(delta, f));
+      b = __fadd_rn(__fadd_rn(b, pb), __fmul_rn(__fmul_rn(delta, delta), __fmul_rn(n, f)));
+      n = nn;
+    }
+  }
+  if (kMoments) {
+    *mean = a / n;
+    *var = fmaxf(__fsub_rn(b / n, __fmul_rn(*mean, *mean)), 0.f);
+  } else {
+    *mean = a;
+    *var = b / n;
+  }
+}
+
 // One launch. Block b owns the contiguous range [start, start + n) of the
 // flattened input:
 //   cluster == 1: planes [b * ppb, b * ppb + ppb), one segment each,
 //                 served by blockDim / ppb threads;
 //   cluster  > 1: slice rank = b % cluster of plane b / cluster, one
 //                 segment served by the whole block.
-template <typename T, bool kRelu>
+// kMode: kWhole (statistics and output), kPartials (the band's statistics
+// into part[plane * 2 + {0, 1}], no output), kApply (statistics from
+// `gathered`, the output).
+template <typename T, bool kRelu, int kMode>
 __global__ void __launch_bounds__(kMaxThreads)
     instance_norm_kernel(const T* __restrict__ x, T* __restrict__ y, long long planes,
-                         long long hw, int ppb, int cluster_size, float eps) {
+                         long long hw, int ppb, int cluster_size, float eps,
+                         float* __restrict__ part, const float* __restrict__ gathered,
+                         int parts) {
   constexpr int N = Vec<T>::N;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ uint64_t bars[kMaxChunks];
@@ -240,10 +300,11 @@ __global__ void __launch_bounds__(kMaxThreads)
   __shared__ float cl_part[2];
 
   const long long blk = blockIdx.x;
-  long long start, n;
+  long long start, n, plane0;
   int nseg;
   if (cluster_size > 1) {
     const long long plane = blk / cluster_size;
+    plane0 = plane;
     const long long rank = blk % cluster_size;
     const long long slice = (hw + cluster_size - 1) / cluster_size;
     const long long s0 = min(rank * slice, hw);
@@ -253,6 +314,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     nseg = 1;
   } else {
     const long long p0 = blk * ppb;
+    plane0 = p0;
     const long long np = min(static_cast<long long>(ppb), planes - p0);
     start = p0 * hw;
     n = np * hw;
@@ -298,13 +360,13 @@ __global__ void __launch_bounds__(kMaxThreads)
   const float count = static_cast<float>(hw);
 
   // pass 1: the sum (bfloat16: and the sum of squares), each chunk as it
-  // lands
+  // lands (kApply: only the wait)
   constexpr bool kMoments = Vec<T>::kMoments;
   float acc = 0.f, acc_sq = 0.f;
   constexpr int kChunkVecs = kChunkBytes / 16;
   for (int c = 0; c < nchunks; ++c) {
     mbar_wait(&bars[c]);
-    if (active) {
+    if (kMode != kApply && active) {
       visit(s, max(qlo, c * kChunkVecs), min(qhi, (c + 1) * kChunkVecs), gt, gsize, lo, hi,
             [&](float v) {
               acc += v;
@@ -312,47 +374,65 @@ __global__ void __launch_bounds__(kMaxThreads)
             });
     }
   }
-  float total = group_sum(acc, red_sum, w0, gwarps);
-  float total_sq = kMoments ? group_sum(acc_sq, red_sq, w0, gwarps) : 0.f;
   cg::cluster_group cluster = cg::this_cluster();
-  if (cluster_size > 1) {
-    if (threadIdx.x == 0) {
-      cl_part[0] = total;
-      cl_part[1] = total_sq;
-    }
-    cluster.sync();
-    total = cluster_sum(cluster, &cl_part[0], cluster_size);
-    if (kMoments) total_sq = cluster_sum(cluster, &cl_part[1], cluster_size);
-  }
-  const float mean = total / count;
-
-  float var;
-  if (kMoments) {
-    // E[x^2] - E[x]^2, each step rounded (no FMA), clamped at 0
-    var = fmaxf(__fsub_rn(total_sq / count, __fmul_rn(mean, mean)), 0.f);
+  float mean, var;
+  if (kMode == kApply) {
+    combine<kMoments>(gathered, parts, planes, plane0 + (active ? seg : 0), &mean, &var);
   } else {
-    // pass 2: the centred sum of squares, from the on-chip copy
-    acc = 0.f;
-    if (active) {
-      visit(s, qlo, qhi, gt, gsize, lo, hi, [&](float v) {
-        const float d = v - mean;
-        acc += d * d;
-      });
-    }
-    total = group_sum(acc, red_sq, w0, gwarps);
+    float total = group_sum(acc, red_sum, w0, gwarps);
+    float total_sq = kMoments ? group_sum(acc_sq, red_sq, w0, gwarps) : 0.f;
     if (cluster_size > 1) {
-      if (threadIdx.x == 0) cl_part[1] = total;
+      if (threadIdx.x == 0) {
+        cl_part[0] = total;
+        cl_part[1] = total_sq;
+      }
       cluster.sync();
-      total = cluster_sum(cluster, &cl_part[1], cluster_size);
+      total = cluster_sum(cluster, &cl_part[0], cluster_size);
+      if (kMoments) total_sq = cluster_sum(cluster, &cl_part[1], cluster_size);
     }
-    var = total / count;
+    mean = total / count;
+
+    if (kMoments) {
+      // E[x^2] - E[x]^2, each step rounded (no FMA), clamped at 0
+      var = fmaxf(__fsub_rn(total_sq / count, __fmul_rn(mean, mean)), 0.f);
+      if (kMode == kPartials) var = total_sq;  // the band's sum of squares
+      if (kMode == kPartials) mean = total;    // and its sum
+    } else {
+      // pass 2: the centred sum of squares, from the on-chip copy
+      acc = 0.f;
+      if (active) {
+        visit(s, qlo, qhi, gt, gsize, lo, hi, [&](float v) {
+          const float d = v - mean;
+          acc += d * d;
+        });
+      }
+      total = group_sum(acc, red_sq, w0, gwarps);
+      if (cluster_size > 1) {
+        if (threadIdx.x == 0) cl_part[1] = total;
+        cluster.sync();
+        total = cluster_sum(cluster, &cl_part[1], cluster_size);
+      }
+      var = kMode == kPartials ? total : total / count;
+    }
+  }
+  if (kMode == kPartials) {
+    // one writer per plane: its segment's first thread (cluster rank 0)
+    const bool writer = active && gt == 0 && (cluster_size == 1 || blk % cluster_size == 0);
+    if (writer) {
+      part[(plane0 + seg) * 2] = mean;
+      part[(plane0 + seg) * 2 + 1] = var;
+    }
+    if (blk == 0 && threadIdx.x == 0) {
+      part[planes * 2] = static_cast<float>(hw);
+      part[planes * 2 + 1] = 0.f;
+    }
   }
   const float m = Vec<T>::round(mean);
   const float r = Vec<T>::round(rsqrtf(var + eps));
 
   // pass 3: normalise (+ReLU) and write. Output element e of the aligned
   // y base is shared-memory element e + d.
-  if (active) {
+  if (kMode != kPartials && active) {
     const int d = shift - yshift;
     const int ylo = lo - d;
     const int yhi = hi - d;
@@ -397,25 +477,33 @@ long long range_smem(long long elems, int esize) {
 
 template <typename T>
 cudaError_t launch(const void* x, void* y, long long planes, long long hw, int relu, float eps,
-                   int ppb, int cluster, int threads, cudaStream_t stream) {
+                   int ppb, int cluster, int threads, cudaStream_t stream, int mode = kWhole,
+                   float* part = nullptr, const float* gathered = nullptr, int parts = 0) {
   const long long elems = cluster > 1 ? (hw + cluster - 1) / cluster : ppb * hw;
   const long long smem = range_smem(elems, sizeof(T));
   const long long grid = cluster > 1 ? planes * cluster : (planes + ppb - 1) / ppb;
   if (smem > kMaxDynamicSmem || grid > INT_MAX) return cudaErrorInvalidValue;
-  void (*kernel)(const T*, T*, long long, long long, int, int, float) =
-      relu ? instance_norm_kernel<T, true> : instance_norm_kernel<T, false>;
+  using Kernel = void (*)(const T*, T*, long long, long long, int, int, float, float*,
+                          const float*, int);
+  const Kernel kernels[5] = {
+      instance_norm_kernel<T, false, kWhole>,   instance_norm_kernel<T, true, kWhole>,
+      instance_norm_kernel<T, false, kPartials>, instance_norm_kernel<T, false, kApply>,
+      instance_norm_kernel<T, true, kApply>,
+  };
+  const int which = mode == kWhole ? (relu ? 1 : 0) : mode == kPartials ? 2 : (relu ? 4 : 3);
+  const Kernel kernel = kernels[which];
   // Allow the largest dynamic shared memory once per kernel and device
   // (host threads may launch on several cards at once).
-  static std::atomic<unsigned long long> ready[2];
+  static std::atomic<unsigned long long> ready[5];
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   const unsigned long long bit = 1ull << (device & 63);
-  if (!(ready[relu ? 1 : 0].load() & bit)) {
+  if (!(ready[which].load() & bit)) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kMaxDynamicSmem);
     if (err != cudaSuccess) return err;
-    ready[relu ? 1 : 0].fetch_or(bit);
+    ready[which].fetch_or(bit);
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(grid));
@@ -430,7 +518,7 @@ cudaError_t launch(const void* x, void* y, long long planes, long long hw, int r
   cfg.attrs = attr;
   cfg.numAttrs = cluster > 1 ? 1 : 0;
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x), static_cast<T*>(y), planes,
-                           hw, ppb, cluster, eps);
+                           hw, ppb, cluster, eps, part, gathered, parts);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -448,24 +536,69 @@ extern "C" {
 // block range over the shared memory limit, a grid over 2^31 - 1 blocks)
 // returns cudaErrorInvalidValue and launches nothing. Otherwise returns
 // the launch's error, then cudaGetLastError() (0 = launched).
+bool plan_ok(long long planes, long long hw, int ppb, int cluster, int threads) {
+  if (planes <= 0 || hw <= 0 || hw > INT_MAX / 8) return false;
+  if (threads < 32 || threads > kMaxThreads || (threads & (threads - 1)) != 0) return false;
+  if (cluster != 1 && cluster != 2 && cluster != 4 && cluster != kMaxCluster) return false;
+  return !(ppb < 1 || (cluster > 1 && ppb != 1) || (ppb & (ppb - 1)) != 0 || threads / ppb < 32);
+}
+
 int otm_instance_norm(const void* x, void* y, long long planes, long long hw, int dtype,
                       int relu, float eps, int ppb, int cluster, int threads, void* stream) {
-  if (planes <= 0 || hw <= 0 || hw > INT_MAX / 8) return cudaErrorInvalidValue;
-  if (threads < 32 || threads > kMaxThreads || (threads & (threads - 1)) != 0) {
-    return cudaErrorInvalidValue;
-  }
-  if (cluster != 1 && cluster != 2 && cluster != 4 && cluster != kMaxCluster) {
-    return cudaErrorInvalidValue;
-  }
-  if (ppb < 1 || (cluster > 1 && ppb != 1) || (ppb & (ppb - 1)) != 0 || threads / ppb < 32) {
-    return cudaErrorInvalidValue;
-  }
+  if (!plan_ok(planes, hw, ppb, cluster, threads)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
       return launch<float>(x, y, planes, hw, relu, eps, ppb, cluster, threads, s);
     case 1:
       return launch<__nv_bfloat16>(x, y, planes, hw, relu, eps, ppb, cluster, threads, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The split form's first launch: x is one band of every plane (planes
+// planes of hw elements, as otm_instance_norm's x), part a float32 device
+// buffer of (planes + 1) * 2: per plane (float32 input) the band's mean
+// and centred sum of squares or (bfloat16) its sum and sum of squares,
+// then (hw, 0). The plan as otm_instance_norm's.
+int otm_instance_norm_partials(const void* x, void* part, long long planes, long long hw,
+                               int dtype, int ppb, int cluster, int threads, void* stream) {
+  if (!plan_ok(planes, hw, ppb, cluster, threads) || hw >= (1 << 24)) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(part);
+  switch (dtype) {
+    case 0:
+      return launch<float>(x, nullptr, planes, hw, 0, 0.f, ppb, cluster, threads, s, kPartials,
+                           p);
+    case 1:
+      return launch<__nv_bfloat16>(x, nullptr, planes, hw, 0, 0.f, ppb, cluster, threads, s,
+                                   kPartials, p);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The split form's second launch: gathered holds every band's partials,
+// [parts, planes + 1, 2] float32 in band order (1 <= parts <= 64); y, the
+// band x normalised by the combined statistics (+ReLU).
+int otm_instance_norm_apply(const void* x, void* y, const void* gathered, int parts,
+                            long long planes, long long hw, int dtype, int relu, float eps,
+                            int ppb, int cluster, int threads, void* stream) {
+  if (!plan_ok(planes, hw, ppb, cluster, threads) || parts < 1 || parts > 64) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* g = static_cast<const float*>(gathered);
+  switch (dtype) {
+    case 0:
+      return launch<float>(x, y, planes, hw, relu, eps, ppb, cluster, threads, s, kApply,
+                           nullptr, g, parts);
+    case 1:
+      return launch<__nv_bfloat16>(x, y, planes, hw, relu, eps, ppb, cluster, threads, s,
+                                   kApply, nullptr, g, parts);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,32 +1,40 @@
-"""The losses of both phases of training (the JAX package's ``losses``)."""
+"""The losses of both phases of training (the JAX package's ``losses``).
+
+Under a spatial group (``parallel/halo.py``) the maps they read are
+bands of rows, and every mean or sum over a whole image is the bands'
+sum over the group (``halo.mean``, ``halo.all_reduce``), differentiable
+where the step differentiates it; the value is the whole image's on
+every rank.
+"""
 
 from __future__ import annotations
 
 import torch
 
 from one_to_many_gan_torch.ops import l2_normalize
+from one_to_many_gan_torch.parallel import halo
 
 
 def lsgan_d_loss(real_scores: torch.Tensor, fake_scores: torch.Tensor) -> torch.Tensor:
     """LSGAN discriminator loss: (MSE(real, 1) + MSE(fake, 0)) / 2."""
-    real_loss = (real_scores - 1.0).square().mean()
-    fake_loss = fake_scores.square().mean()
+    real_loss = halo.mean((real_scores - 1.0).square())
+    fake_loss = halo.mean(fake_scores.square())
     return (real_loss + fake_loss) / 2.0
 
 
 def lsgan_g_loss(fake_scores: torch.Tensor) -> torch.Tensor:
     """LSGAN generator loss: MSE(fake, 1)."""
-    return (fake_scores - 1.0).square().mean()
+    return halo.mean((fake_scores - 1.0).square())
 
 
 def discriminator_confidence(scores: torch.Tensor) -> torch.Tensor:
     """Mean sign of scores rescaled from [0,1]-target space to [-1,1]:
     sign(2*score - 1).mean()."""
-    return torch.sign(scores * 2.0 - 1.0).mean()
+    return halo.mean(torch.sign(scores * 2.0 - 1.0))
 
 
 def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return (a - b).abs().mean()
+    return halo.mean((a - b).abs())
 
 
 def style_cycle_loss(original_w: torch.Tensor, reconstructed_w: torch.Tensor) -> torch.Tensor:
@@ -43,19 +51,6 @@ def style_cycle_loss(original_w: torch.Tensor, reconstructed_w: torch.Tensor) ->
     )
     cos = (a * b).sum(dim=-1) / denom
     return (1.0 - cos.mean()) + 0.2 * (a - b).square().mean()
-
-
-class _ScaleGrad(torch.autograd.Function):
-    """Identity forward; the gradient times ``factor`` backward."""
-
-    @staticmethod
-    def forward(ctx, x: torch.Tensor, factor: float) -> torch.Tensor:
-        ctx.factor = factor
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, grad: torch.Tensor):
-        return grad * ctx.factor, None
 
 
 def kl_loss(combined_latents: torch.Tensor, group=None) -> torch.Tensor:
@@ -77,12 +72,16 @@ def kl_loss(combined_latents: torch.Tensor, group=None) -> torch.Tensor:
         mean = x.mean()
         var = (x - mean).square().mean()
         return mean.square() + (var - 1.0).square()
-    n = x.numel() * group.world
     s1 = x.sum()
+    if group.spatial is None:
+        n = x.numel() * group.world
+    else:
+        n = group.all_reduce_sum(torch.tensor(float(x.numel()), dtype=x.dtype,
+                                              device=x.device))
     mean = group.all_reduce_sum(s1) / n + (s1 - s1.detach()) / n
     s2 = (x - mean.detach()).square().sum()
     var = group.all_reduce_sum(s2) / n + (s2 - s2.detach()) / n
-    return _ScaleGrad.apply(mean.square() + (var - 1.0).square(), float(group.world))
+    return halo.scale_grad(mean.square() + (var - 1.0).square(), float(group.world))
 
 
 def path_loss(
@@ -102,20 +101,22 @@ def path_loss(
     total = torch.zeros((), dtype=h.dtype, device=h.device)
     for f1, f2 in zip(features1, features2, strict=True):
         jac = (f1.to(h.dtype) - f2.to(h.dtype)) / h
-        total = total + jac.square().mean()
+        total = total + halo.mean(jac.square())
     return total / len(features1)
 
 
-def r1_penalty(discriminator, real_images: torch.Tensor) -> torch.Tensor:
+def r1_penalty(discriminator, real_images: torch.Tensor, h: int | None = None) -> torch.Tensor:
     """R1 gradient penalty E[|grad_x D(x)|^2] on real images [B,C,H,W]
     (the JAX package's ``losses.r1_penalty``): the sum over the batch of
     D's per-sample mean patch logit, differentiated with respect to the
     images with ``create_graph=True`` (so the penalty is differentiable in
     D's parameters: a double backward through D), squared and summed per
     sample in float32 (float64 for float64 images), averaged over the
-    batch."""
+    batch. Under a spatial group the images are bands of ``h`` rows; the
+    scalar, the same on every rank, is differentiated at ``1 / S``
+    (``halo.share``) so that its band gradients are the image's."""
     x = real_images.detach().requires_grad_(True)
-    scalar = discriminator(x).mean(dim=(1, 2, 3)).sum()
-    (grad,) = torch.autograd.grad(scalar, x, create_graph=True)
+    scalar = halo.mean(discriminator(x, h), (1, 2, 3)).sum()
+    (grad,) = torch.autograd.grad(halo.share(scalar), x, create_graph=True)
     acc = torch.promote_types(grad.dtype, torch.float32)
-    return grad.to(acc).square().sum(dim=(1, 2, 3)).mean()
+    return halo.all_reduce(grad.to(acc).square().sum(dim=(1, 2, 3))).mean()

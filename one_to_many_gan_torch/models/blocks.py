@@ -6,6 +6,9 @@
 - ``ModulatedResnetBlock``: reflect-pad 1 -> modulated conv3 -> ReLU ->
   reflect-pad 1 -> modulated conv3, residual add; the SAME style vector w
   feeds both convs (``int8``: both on int8 codes, inference only).
+
+Both take their input's global height ``h`` under a spatial group
+(``parallel/halo.py``), which their 3x3 convs keep.
 """
 
 from __future__ import annotations
@@ -27,9 +30,9 @@ class ResnetBlock(nn.Module):
             dim, dim, 3, padding=1, pad_mode="reflect", use_bias=False, dtype=dtype
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = fused_instance_norm(self.conv0(x), relu=True)
-        y = fused_instance_norm(self.conv1(y))
+    def forward(self, x: torch.Tensor, h: int | None = None) -> torch.Tensor:
+        y = fused_instance_norm(self.conv0(x, h), relu=True)
+        y = fused_instance_norm(self.conv1(y, h))
         return x + y
 
 
@@ -42,7 +45,7 @@ class ModulatedResnetBlock(nn.Module):
         self.conv1 = ModulatedConv(dim, dim, w_dim, padding=1, pad_mode="reflect", dtype=dtype,
                                    int8=int8)
 
-    def forward(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        y = relu(self.conv0(x, w))
-        y = self.conv1(y, w)
+    def forward(self, x: torch.Tensor, w: torch.Tensor, h: int | None = None) -> torch.Tensor:
+        y = relu(self.conv0(x, w, h))
+        y = self.conv1(y, w, h)
         return x + y

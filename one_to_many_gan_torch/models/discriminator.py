@@ -17,6 +17,11 @@ outside the frame, so the first conv's output sits at exactly its bias
 there (0 at initialisation), and ``F.leaky_relu`` gave that bias a
 gradient 70 % off the JAX package's (measured on the CPU, 64x64 D
 phase).
+
+Under a spatial group (``parallel/halo.py``) both take a band of rows of
+images of ``h`` rows (the caller passes ``h``): the trunk's 4x4 convs
+turn ``h`` into ``h - 1`` (ragged bands, whose halo is 1 row above and 2
+below), and the extractor's spatial mean sums the bands over the group.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from one_to_many_gan_torch.ops import (
     fused_instance_norm,
 )
 from one_to_many_gan_torch.ops.activations import leaky_relu
+from one_to_many_gan_torch.parallel import halo
 
 TRUNK_FEATURES = (64, 128, 256, 512)
 
@@ -46,16 +52,27 @@ class Trunk(nn.ModuleList):
         )
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Images [B,C,H,W] -> features [B,512,H',W'] in the compute dtype."""
+    def out_rows(self, h: int) -> int:
+        """The features' height for images of ``h`` rows."""
+        for i, conv in enumerate(self):
+            h = conv.out_rows(h)
+            if i < len(self) - 1:
+                h //= 2
+        return h
+
+    def forward(self, x: torch.Tensor, h: int | None = None) -> torch.Tensor:
+        """Images [B,C,H,W] -> features [B,512,H',W'] in the compute dtype
+        (under a spatial group: bands of images of ``h`` rows)."""
         x = x.to(self.dtype)
         for i, conv in enumerate(self):
-            x = conv(x)
+            x = conv(x, h)
+            h = None if h is None else conv.out_rows(h)
             if i > 0:
                 x = fused_instance_norm(x)
             x = leaky_relu(x)
             if i < len(self) - 1:
-                x = downsample2x(x)
+                x = downsample2x(x, h)
+                h = None if h is None else h // 2
         return x
 
 
@@ -65,9 +82,10 @@ class Discriminator(nn.Module):
         self.trunk = Trunk(channels, dtype=dtype)
         self.head = EqualizedConv(TRUNK_FEATURES[-1], 1, 4, padding=1, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Images [B,C,H,W] -> patch logits [B,1,H',W'] in the compute dtype."""
-        return self.head(self.trunk(x))
+    def forward(self, x: torch.Tensor, h: int | None = None) -> torch.Tensor:
+        """Images [B,C,H,W] -> patch logits [B,1,H',W'] in the compute dtype
+        (under a spatial group: bands of images of ``h`` rows)."""
+        return self.head(self.trunk(x, h), None if h is None else self.trunk.out_rows(h))
 
 
 class StyleExtractor(nn.Module):
@@ -79,6 +97,7 @@ class StyleExtractor(nn.Module):
             TRUNK_FEATURES[-1], w_dim, dtype=torch.promote_types(dtype, torch.float32)
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Images [B,C,H,W] -> styles [B, w_dim] in the head's dtype."""
-        return self.head(self.trunk(x).mean(dim=(2, 3)))
+    def forward(self, x: torch.Tensor, h: int | None = None) -> torch.Tensor:
+        """Images [B,C,H,W] -> styles [B, w_dim] in the head's dtype (under a
+        spatial group: bands of images of ``h`` rows; the styles whole)."""
+        return self.head(halo.mean(self.trunk(x, h), (2, 3)))

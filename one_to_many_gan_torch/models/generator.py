@@ -20,6 +20,11 @@ so checkpoints and artifacts load unchanged.
 modulated resnet block's residual add, and after each upsample-stage
 modulated conv, post-ReLU for every upsample conv except the last, which
 stays pre-ReLU.
+
+Under a spatial group (``parallel/halo.py``) the three passes take bands
+of rows: ``encode`` of images of ``image_size[0]`` rows, ``decode`` and
+``extract`` of latents of ``latent_rows``, each layer given its input's
+global height.
 """
 
 from __future__ import annotations
@@ -69,6 +74,10 @@ class Generator(nn.Module):
         )
         self.n_style_blocks = n_style
         self.dtype = dtype
+        self.image_rows = image_size[0]
+        self.latent_rows = image_size[0]
+        for _ in range(n_down):
+            self.latent_rows //= 2
         f = start_filters
         self.enc_stem = EqualizedConv(channels, f, 7, padding=3, pad_mode="reflect", dtype=dtype)
         enc_down = []
@@ -92,36 +101,42 @@ class Generator(nn.Module):
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """Image [B,C,H,W] -> latent feature map."""
-        z = fused_instance_norm(self.enc_stem(x.to(self.dtype)), relu=True)
+        h = self.image_rows
+        z = fused_instance_norm(self.enc_stem(x.to(self.dtype), h), relu=True)
         for conv in self.enc_down:
-            z = fused_instance_norm(conv(z), relu=True)
-            z = downsample2x(z)
+            z = fused_instance_norm(conv(z, h), relu=True)
+            z = downsample2x(z, h)
+            h //= 2
         for block in self.enc_blocks:
-            z = block(z)
+            z = block(z, h)
         return z
 
     def decode(self, z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """Latent + per-block styles w [n_style_blocks, B, w_dim] -> image."""
+        h = self.latent_rows
         i = 0
         for block in self.dec_blocks:
-            z = block(z, w[i])
+            z = block(z, w[i], h)
             i += 1
         for conv in self.dec_up:
-            z = relu(conv(upsample2x(z), w[i]))
+            z = relu(conv(upsample2x(z, h), w[i], 2 * h))
+            h *= 2
             i += 1
-        return torch.tanh(self.out_conv(z))
+        return torch.tanh(self.out_conv(z, h))
 
     def extract(self, z: torch.Tensor, w: torch.Tensor) -> list[torch.Tensor]:
         """Feature maps after each style block (path-loss taps)."""
         features = []
         n_total = len(self.dec_blocks) + len(self.dec_up)
+        h = self.latent_rows
         i = 0
         for block in self.dec_blocks:
-            z = block(z, w[i])
+            z = block(z, w[i], h)
             features.append(z)
             i += 1
         for conv in self.dec_up:
-            z = conv(upsample2x(z), w[i])
+            z = conv(upsample2x(z, h), w[i], 2 * h)
+            h *= 2
             i += 1
             if i < n_total:
                 z = relu(z)

@@ -10,6 +10,12 @@ Layouts are PyTorch's: linear weights ``[out, in]``, conv weights OIHW.
 Convolutions go through ``F.conv2d``; the JAX package's space-to-depth
 forms of the same convs are TPU layout tricks, exact reassociations of
 this math, and are not ported.
+
+Under a spatial group (``parallel/halo.py``) a conv takes its input's
+global height ``h`` and runs on this rank's band of rows (``conv_band``):
+the rows its output band reads, fetched from the neighbouring bands, H
+padded only at the true top and bottom of the map, W padded as on one
+process, and the conv itself with no H padding.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from torch import nn
 
 from one_to_many_gan_torch.ops.pad import pad as pad_op
 from one_to_many_gan_torch.ops.remat import conv_out
+from one_to_many_gan_torch.parallel import halo
 
 
 def he_constant(fan_in: int, dtype: torch.dtype) -> float:
@@ -40,6 +47,26 @@ def pad2d(x: torch.Tensor, pad: int, mode: str) -> torch.Tensor:
         return pad_op(x, (pad, pad, pad, pad), "reflect")
     msg = f"unknown pad mode {mode}"
     raise ValueError(msg)
+
+
+def conv_rows(h: int, k: int, pad: int) -> int:
+    """The output height of a stride-1 ``k`` x ``k`` conv padded by ``pad``."""
+    return h + 2 * pad - k + 1
+
+
+def conv_band(x: torch.Tensor, w: torch.Tensor, h: int, pad: int, mode: str) -> torch.Tensor:
+    """This rank's band of ``F.conv2d(pad2d(X, pad, mode), w)``, where ``x``
+    is its band of a map ``X`` of ``h`` rows (``parallel/halo.py``): the
+    input rows its output band reads, fetched from the other bands, padded
+    by ``mode`` where they run past the map (its true top and bottom)."""
+    k = w.shape[-2]
+    win = halo.window(x, h, conv_rows(h, k, pad), lambda a, b: (a - pad, b - pad + k - 1), mode)
+    rows = win.rows
+    if mode != "zero" and pad:
+        rows = pad_op(rows, (pad, pad, 0, 0), mode)
+    with conv_out():  # the save point of tpu.remat = "conv"
+        y = F.conv2d(rows, w, padding=(0, pad) if mode == "zero" else 0)
+    return y[:, :, : win.keep]
 
 
 class EqualizedLinear(nn.Module):
@@ -91,15 +118,23 @@ class EqualizedConv(nn.Module):
         self.dtype = dtype
         self.c = he_constant(in_features * k * k, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def out_rows(self, h: int) -> int:
+        return conv_rows(h, self.weight.shape[-2], self.padding)
+
+    def forward(self, x: torch.Tensor, h: int | None = None) -> torch.Tensor:
+        """``x`` [B,C,H,W]; under a spatial group, this rank's band of a map
+        of ``h`` rows -> its band of the output."""
         x = x.to(self.dtype)
         w = self.weight.to(self.dtype) * self.c
-        if self.pad_mode == "zero":
-            padding = self.padding
+        if halo.current() is not None:
+            y = conv_band(x, w, h, self.padding, self.pad_mode)
         else:
-            x, padding = pad2d(x, self.padding, self.pad_mode), 0
-        with conv_out():  # the save point of tpu.remat = "conv"
-            y = F.conv2d(x, w, padding=padding)
+            if self.pad_mode == "zero":
+                padding = self.padding
+            else:
+                x, padding = pad2d(x, self.padding, self.pad_mode), 0
+            with conv_out():  # the save point of tpu.remat = "conv"
+                y = F.conv2d(x, w, padding=padding)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)[:, None, None]
         return y

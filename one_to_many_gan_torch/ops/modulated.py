@@ -20,6 +20,11 @@ from the unpadded input to the demodulated output, is one call of
 ``ops/cuda/int8_conv.py::modulated_int8_conv``: on the card an amax
 pre-pass and one fused conv kernel, with no torch pass over the
 activations.
+
+Under a spatial group (``parallel/halo.py``) the float conv runs on this
+rank's band of rows, its input's global height ``h`` given
+(``ops/equalized.py::conv_band``); the int8 path is serving's, which has
+no spatial axis.
 """
 
 from __future__ import annotations
@@ -29,9 +34,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from one_to_many_gan_torch.ops.cuda.int8_conv import modulated_int8_conv
-from one_to_many_gan_torch.ops.equalized import EqualizedLinear, he_constant, pad2d
+from one_to_many_gan_torch.ops.equalized import (
+    EqualizedLinear,
+    conv_band,
+    he_constant,
+    pad2d,
+)
 from one_to_many_gan_torch.ops.quantize import quantize_weight
 from one_to_many_gan_torch.ops.remat import conv_out
+from one_to_many_gan_torch.parallel import halo
 
 
 class ModulatedConv(nn.Module):
@@ -63,9 +74,19 @@ class ModulatedConv(nn.Module):
         self.c32 = he_constant(in_features * k * k, torch.float32)
         self.c = he_constant(in_features * k * k, dtype)
 
-    def forward(self, x: torch.Tensor, w_style: torch.Tensor) -> torch.Tensor:
-        """x: [B, in, H, W]; w_style: [B, w_dim] -> [B, out, H, W]."""
+    def forward(self, x: torch.Tensor, w_style: torch.Tensor,
+                h: int | None = None) -> torch.Tensor:
+        """x: [B, in, H, W]; w_style: [B, w_dim] -> [B, out, H, W] (under a
+        spatial group: bands of maps of ``h`` rows)."""
         s = self.to_style(w_style)  # [B, in], float32 (float64 in a float64 copy)
+        if halo.current() is not None:
+            if self.int8:
+                msg = "int8 modulated convs serve only; the spatial axis trains"
+                raise NotImplementedError(msg)
+            x = x.to(self.dtype) * s[:, :, None, None].to(self.dtype)
+            y = conv_band(x, self.weight.to(self.dtype) * self.c, h, self.padding,
+                          self.pad_mode)
+            return y * self._demodulation(s)[:, :, None, None].to(self.dtype)
         if self.int8:
             w_q, w_scale = quantize_weight(self.weight * self.c32)
             return modulated_int8_conv(x, s, w_q, w_scale, self._demodulation(s),

@@ -28,6 +28,13 @@ is one depthwise conv. R1 differentiates the discriminator's
 downsampling twice, and PyTorch's own double backward of a grouped conv
 runs one conv per channel: at 512x512 it made R1's step 18.8 s instead
 of about 0.1 s.
+
+Under a spatial group (``parallel/halo.py``) ``upsample2x`` and
+``downsample2x`` take their input's global height ``h`` and run on this
+rank's band of rows: each H pass fetches the input rows its output band
+reads and edge-pads them only at the map's true top and bottom; the odd
+size's interpolation matrix is banded (the rows of the output band, the
+columns they read); the W passes are those of one process.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from one_to_many_gan_torch.ops.pad import pad
+from one_to_many_gan_torch.parallel import halo
 
 _BLUR = (0.25, 0.5, 0.25)
 _BLUR_HALVE = (0.125, 0.375, 0.375, 0.125)
@@ -164,14 +172,85 @@ def bilinear_resize(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     return x
 
 
-def upsample2x(x: torch.Tensor) -> torch.Tensor:
-    """Bilinear 2x upsample, then smooth."""
+def _fir_band(x: torch.Tensor, h: int, taps: tuple[float, ...],
+              stride: int) -> halo.Window:
+    """This rank's band of ``_fir(X, taps, 2, stride)`` for its band ``x``
+    of a map ``X`` of ``h`` rows (an output row ``o`` reads rows
+    ``o * stride - 1 .. o * stride - 2 + len(taps)`` of the edge-padded
+    map), as a ``Window`` of the output: its ``span``, then ``keep``."""
+    t = len(taps)
+    win = halo.window(x, h, (h + 2 - t) // stride + 1,
+                      lambda a, b: (a * stride - 1, (b - 1) * stride - 1 + t), "replicate")
+    k = _taps(taps, 2, x.shape[1], x.dtype, x.device)
+    return win._replace(rows=_DepthwiseConv.apply(win.rows, k, (stride, 1)))
+
+
+def _double_blur_band(x: torch.Tensor, h: int) -> halo.Window:
+    """This rank's band of ``_double_blur(X, 2)`` (``2 h`` rows) for its
+    band ``x`` of ``X``: output rows ``[lo, hi)`` read input rows
+    ``lo // 2 - 1 .. (hi - 1) // 2 + 1``, and the transposed conv of those
+    (edge-padded at the map's border) gives output rows from
+    ``2 (lo // 2)``."""
+    win = halo.window(x, h, 2 * h, lambda a, b: (a // 2 - 1, (b - 1) // 2 + 2), "replicate")
+    c = x.shape[1]
+    k = _taps(_DOUBLE_BLUR, 2, c, x.dtype, x.device)
+    y = F.conv_transpose2d(win.rows, k, stride=(2, 1), padding=(4, 0), groups=c)
+    lo, hi = win.span
+    first = 2 * (lo // 2)
+    return win._replace(rows=y[:, :, lo - first : hi - first])
+
+
+@functools.lru_cache(maxsize=256)
+def _band_columns(in_size: int, out_size: int, lo: int, hi: int) -> tuple[int, int]:
+    """The input rows ``[ia, ib)`` that output rows ``[lo, hi)`` of the
+    interpolation matrix weigh."""
+    cols = np.nonzero(_interp_matrix(in_size, out_size)[lo:hi].any(axis=0))[0]
+    return int(cols[0]), int(cols[-1]) + 1
+
+
+def _resize_band(x: torch.Tensor, h: int) -> torch.Tensor:
+    """This rank's band of ``bilinear_resize(blur3(X), h // 2, W // 2)``
+    for its band ``x`` of ``X`` (``h`` rows): the interpolation matrix's
+    rows of the output band and the columns they weigh, on those input
+    rows blurred (which read one row more on each side)."""
+    n_out = h // 2
+    w = x.shape[3]
+
+    def reads(a: int, b: int) -> tuple[int, int]:
+        ia, ib = _band_columns(h, n_out, a, b)
+        return ia - 1, ib + 1
+
+    win = halo.window(x, h, n_out, reads, "replicate")
+    k = _taps(_BLUR, 2, x.shape[1], x.dtype, x.device)
+    blurred = _fir(_DepthwiseConv.apply(win.rows, k, (1, 1)), _BLUR, 3)
+    lo, hi = win.span
+    ia, ib = _band_columns(h, n_out, lo, hi)
+    y = _matrix(h, n_out, x)[lo:hi, ia:ib] @ blurred
+    if w != w // 2:
+        y = y @ _matrix(w, w // 2, x).T
+    return y[:, :, : win.keep]
+
+
+def upsample2x(x: torch.Tensor, h: int | None = None) -> torch.Tensor:
+    """Bilinear 2x upsample, then smooth (under a spatial group: this
+    rank's band of a map of ``h`` rows -> its band of ``2 h``)."""
+    if halo.current() is not None:
+        win = _double_blur_band(x, h)
+        return _double_blur(win.rows, 3)[:, :, : win.keep]
     return _double_blur(_double_blur(x, 2), 3)
 
 
-def downsample2x(x: torch.Tensor) -> torch.Tensor:
-    """Smooth, then bilinear downsample to (H//2, W//2)."""
-    h, w = x.shape[2], x.shape[3]
+def downsample2x(x: torch.Tensor, h: int | None = None) -> torch.Tensor:
+    """Smooth, then bilinear downsample to (H//2, W//2) (under a spatial
+    group: this rank's band of a map of ``h`` rows -> its band of
+    ``h // 2``)."""
+    w = x.shape[3]
+    if halo.current() is not None:
+        if h % 2 == 0 and w % 2 == 0:
+            win = _fir_band(x, h, _BLUR_HALVE, 2)
+            return _fir(win.rows, _BLUR_HALVE, 3, stride=2)[:, :, : win.keep]
+        return _resize_band(x, h)
+    h = x.shape[2]
     if h % 2 == 0 and w % 2 == 0:
         return _fir(_fir(x, _BLUR_HALVE, 2, stride=2), _BLUR_HALVE, 3, stride=2)
     return bilinear_resize(blur3(x), h // 2, w // 2)

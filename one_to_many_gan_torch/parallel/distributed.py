@@ -16,8 +16,9 @@ across hosts; here each data-parallel rank is a process with one card
   raises ``RankFailed`` with that rank's exit code. A SIGTERM to the
   launcher is passed on to every rank.
 - ``data_parallel_ranks`` is the number of ranks a config runs on a
-  device type: on ``cuda`` ``config.resolve_data_parallel`` over the
-  visible cards; on the CPU ``data_parallel`` gloo ranks, -1 meaning one.
+  device type, ``data_parallel x spatial_parallel``: on ``cuda``
+  ``config.resolve_data_parallel`` over the visible cards; on the CPU
+  ``data_parallel`` gloo ranks to a spatial column, -1 meaning one.
 """
 
 from __future__ import annotations
@@ -58,13 +59,15 @@ def torchrun_present() -> bool:
 
 
 def data_parallel_ranks(config: Config, device_type: str) -> int:
-    """The ranks ``config`` trains on: on ``cuda`` ``resolve_data_parallel``
-    over ``torch.cuda.device_count()`` cards (more than there are raise);
-    on ``cpu`` ``data_parallel`` gloo processes, -1 meaning one."""
+    """The ranks ``config`` trains on, ``data_parallel x spatial_parallel``:
+    on ``cuda`` ``resolve_data_parallel`` over ``torch.cuda.device_count()``
+    cards (more than there are raise); on ``cpu`` ``data_parallel`` gloo
+    processes to each of ``spatial_parallel`` columns, -1 meaning one."""
+    sp = config["tpu"]["spatial_parallel"]
     if device_type == "cuda":
-        return resolve_data_parallel(config, torch.cuda.device_count())
+        return resolve_data_parallel(config, torch.cuda.device_count()) * sp
     dp = config["tpu"]["data_parallel"]
-    return resolve_data_parallel(config, 1 if dp == -1 else dp)
+    return resolve_data_parallel(config, (1 if dp == -1 else dp) * sp) * sp
 
 
 def ensure_initialized(
@@ -75,10 +78,12 @@ def ensure_initialized(
     local_rank: int | None = None,
     init_method: str | None = None,
     timeout_s: float = DEFAULT_TIMEOUT_S,
+    spatial: int = 1,
 ) -> DataParallel:
-    """Join (or, when this process has joined, return) the data-parallel
-    group on ``device_type`` (``cuda``: NCCL, ``cpu``: gloo). Without
-    ``rank`` the torchrun variables give it; without either it raises."""
+    """Join (or, when this process has joined, return) the group on
+    ``device_type`` (``cuda``: NCCL, ``cpu``: gloo), ``spatial`` ranks to a
+    data row. Without ``rank`` the torchrun variables give it; without
+    either it raises."""
     if rank is None:
         if not torchrun_present():
             msg = (
@@ -108,7 +113,7 @@ def ensure_initialized(
     if not dist.is_initialized():
         dist.init_process_group(backend, init_method=init_method, rank=rank,
                                 world_size=world_size, timeout=timeout)
-    return make_group(device, timeout)
+    return make_group(device, timeout, spatial)
 
 
 def local_batch_slice(global_batch: int, group: DataParallel | None = None) -> tuple[int, int]:
@@ -133,21 +138,23 @@ def _free_port() -> int:
 
 
 def _rank_main(rank: int, world: int, device_type: str, port: int, timeout_s: float,
-               threads: int, fn: Callable, args: tuple) -> None:
+               threads: int, fn: Callable, args: tuple, spatial: int = 1) -> None:
     """One rank of ``spawn``: join the group, run ``fn(group, *args)``,
     leave the group."""
     torch.set_num_threads(threads)
     group = ensure_initialized(device_type, rank=rank, world_size=world,
-                               init_method=f"tcp://127.0.0.1:{port}", timeout_s=timeout_s)
+                               init_method=f"tcp://127.0.0.1:{port}", timeout_s=timeout_s,
+                               spatial=spatial)
     fn(group, *args)
     group.close()
     dist.destroy_process_group()
 
 
 def spawn(fn: Callable, world: int, device_type: str, args: tuple = (), *,
-          timeout_s: float = DEFAULT_TIMEOUT_S) -> None:
+          timeout_s: float = DEFAULT_TIMEOUT_S, spatial: int = 1) -> None:
     """Run ``fn(group, *args)`` on ``world`` ranks, one process each
-    (``torch.multiprocessing.spawn``), and wait for them all. ``fn`` and
+    (``torch.multiprocessing.spawn``), ``spatial`` ranks to a data row, and
+    wait for them all. ``fn`` and
     ``args`` must pickle (a module-level function). Each rank runs
     ``OMP_NUM_THREADS`` torch threads when it is set, else the host's
     cores shared out, so that the ranks' thread pools do not oversubscribe
@@ -158,7 +165,8 @@ def spawn(fn: Callable, world: int, device_type: str, args: tuple = (), *,
     threads = (int(os.environ.get("OMP_NUM_THREADS", 0))
                or max(1, (os.cpu_count() or 1) // world))
     ctx = mp.spawn(_rank_main, nprocs=world, join=False,
-                   args=(world, device_type, _free_port(), timeout_s, threads, fn, args))
+                   args=(world, device_type, _free_port(), timeout_s, threads, fn, args,
+                         spatial))
 
     def forward_term(signum, frame):  # noqa: ARG001
         for pid in ctx.pids():

@@ -89,28 +89,36 @@ def tiny_config(
     return config
 
 
-def card_overrides(config: Config, cards: int = 1) -> dict[str, Any]:
-    """The keys of ``config`` to change so that ``cards`` cards run it, each
-    one data-parallel replica of it, with their new values:
+def card_overrides(config: Config, cards: int = 1, *, spatial: bool = False) -> dict[str, Any]:
+    """The keys of ``config`` to change so that ``cards`` cards run it, with
+    their new values. By default each card is one data-parallel replica:
     ``data_parallel`` ``cards`` and ``batch_size`` ``cards`` times one
     replica's share of the global batch (when the config sets a number of
     replicas; with -1, all visible cards, ``data_parallel`` ``cards`` for
-    more than one card and the global batch kept), and
-    ``spatial_parallel`` 1. Only keys whose value changes are listed."""
+    more than one card and the global batch kept), and ``spatial_parallel``
+    1. With ``spatial``, the config's spatial axis is kept: ``data_parallel``
+    ``cards // spatial_parallel`` (which must divide) and the global batch
+    as written. Only keys whose value changes are listed."""
     if cards < 1:
         msg = f"cards must be >= 1, got {cards}"
         raise ValueError(msg)
     tpu = config["tpu"]
     batch = config["training"]["batch_size"]
     dp = tpu["data_parallel"]
+    current = {"data_parallel": dp, "batch_size": batch,
+               "spatial_parallel": tpu["spatial_parallel"]}
+    if spatial:
+        sp = tpu["spatial_parallel"]
+        if cards % sp:
+            msg = f"spatial_parallel={sp} must divide the {cards} cards"
+            raise ValueError(msg)
+        return {k: v for k, v in {"data_parallel": cards // sp}.items() if current[k] != v}
     want: dict[str, Any] = {}
     if dp != -1:
         want = {"data_parallel": cards, "batch_size": batch // dp * cards}
     elif cards > 1:
         want = {"data_parallel": cards}
     want["spatial_parallel"] = 1
-    current = {"data_parallel": dp, "batch_size": batch,
-               "spatial_parallel": tpu["spatial_parallel"]}
     return {k: v for k, v in want.items() if current[k] != v}
 
 
@@ -123,14 +131,14 @@ def _toml_value(value: Any) -> str:
 
 
 def write_card_config(src: Path | str, dst: Path | str, *, cards: int = 1,
-                      **values: Any) -> dict[str, Any]:
+                      spatial: bool = False, **values: Any) -> dict[str, Any]:
     """Write a copy of the TOML file ``src`` to ``dst`` that ``cards`` cards
-    run: ``card_overrides`` of it, then ``values`` (other keys, such as the
-    data folders), each by replacing its ``key = ...`` line, which must be
-    the file's only line for that key. -> every key changed, with its new
-    value, in that order."""
+    run: ``card_overrides`` of it (``spatial``: keeping its spatial axis),
+    then ``values`` (other keys, such as the data folders), each by
+    replacing its ``key = ...`` line, which must be the file's only line for
+    that key. -> every key changed, with its new value, in that order."""
     text = Path(src).read_text()
-    changes = {**card_overrides(load_config(src), cards), **values}
+    changes = {**card_overrides(load_config(src), cards, spatial=spatial), **values}
     for key, value in changes.items():
         line = re.compile(rf"(?m)^{re.escape(key)} = .*$")
         if len(line.findall(text)) != 1:

@@ -29,13 +29,17 @@ GPU. With ``training.deterministic_cuda_kernels = true`` two runs give
 the same bits (``device.use_deterministic_kernels``; the cuBLAS
 workspace is set before CUDA starts).
 
-Data parallelism: when ``tpu.data_parallel`` resolves to more than one
-rank (``parallel.distributed.data_parallel_ranks``: -1 is every visible
-card; more than there are raise), both modes run one rank per card: the
+Data and spatial parallelism: when ``tpu.data_parallel x
+tpu.spatial_parallel`` resolves to more than one rank
+(``parallel.distributed.data_parallel_ranks``: -1 is every visible card
+a spatial column leaves; more than there are raise), both modes run one
+rank per card, each image's rows split over the ``spatial_parallel``
+ranks of its data row (``parallel/halo.py``): the
 CLI builds the CUDA kernels once, then starts the ranks itself (one
 process each, NCCL over a free local port) and waits for them, or, under
 torchrun, this process is one of them. With ``--device cpu`` the ranks
-are gloo processes (``data_parallel`` of them; -1 is one). A rank's
+are gloo processes (``data_parallel x spatial_parallel`` of them; -1 is
+one data row). A rank's
 failure ends every rank, and the CLI exits with its code (42 for
 ``TrainingDiverged``). Rank 0 prints; ``--synthetic-steps`` then times
 each step of the data-parallel step on its card.
@@ -45,6 +49,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -156,12 +161,15 @@ def main(argv: list[str] | None = None) -> None:
         _run(config, args)
         return
     timeout_s = distributed.barrier_timeout_s(config)
+    spatial = config["tpu"]["spatial_parallel"]
     if distributed.torchrun_present():
-        group = distributed.ensure_initialized(device_type, timeout_s=timeout_s)
-        if group.world != ranks:
-            msg = (f"torchrun started {group.world} ranks; tpu.data_parallel resolves to "
-                   f"{ranks}")
+        world = int(os.environ["WORLD_SIZE"])
+        if world != ranks:
+            msg = (f"torchrun started {world} ranks; tpu.data_parallel x "
+                   f"tpu.spatial_parallel resolves to {ranks}")
             raise ValueError(msg)
+        group = distributed.ensure_initialized(device_type, timeout_s=timeout_s,
+                                               spatial=spatial)
         _run(config, args, group)
         return
     if device_type == "cuda":
@@ -169,7 +177,8 @@ def main(argv: list[str] | None = None) -> None:
 
         build.build_kernels()  # once, before the ranks would each build them
     try:
-        distributed.spawn(_rank, ranks, device_type, (argv,), timeout_s=timeout_s)
+        distributed.spawn(_rank, ranks, device_type, (argv,), timeout_s=timeout_s,
+                          spatial=spatial)
     except distributed.RankFailed as exc:
         print(f"train: {exc}", file=sys.stderr)
         sys.exit(exc.exitcode)

@@ -1,6 +1,7 @@
-"""Drive the port's data parallelism on several NVIDIA cards of one host.
+"""Drive the port's data and spatial parallelism on several NVIDIA cards
+of one host.
 
-    python3 scripts/multi_card_smoke.py [--cards N] [--checks abcde]
+    python3 scripts/multi_card_smoke.py [--cards N] [--checks abcdefg]
 
 Run it from the repository root on a host with N CUDA cards (default 4;
 H100s: the kernels are built for sm_90a). It builds the CUDA kernels once
@@ -11,7 +12,10 @@ H100s: the kernels are built for sm_90a). It builds the CUDA kernels once
     on and off, on every card but the first, against their plain versions
     at ``chip_smoke.py``'s limits (phases 2, 7 and 10), and the int8
     pre-pass and fused conv at phase 18's ragged shapes and a resnet-block
-    site, float32 and bfloat16, both pad modes, bitwise;
+    site, float32 and bfloat16, both pad modes, bitwise; and the split
+    instance norm (the spatial axis's partials and apply) at
+    ``chip_smoke.py`` phase 19's sites, cut into 2 and 4 bands, against its
+    plain version and the whole-plane kernel;
 (b) the fused step at phase 11's config in float32 (256x256, global batch
     16, TF32 off, deterministic kernels), N ranks against one card, each
     step from the one card's state before it (its checkpoint dict) with
@@ -42,7 +46,25 @@ H100s: the kernels are built for sm_90a). It builds the CUDA kernels once
     weights) with ``--data-parallel N`` against one card, float and int8
     (``--int8``): ``/generate`` at n = 8, 32 and 64, the images within
     1e-5 of one card's (int8: as far as int8 may be from float32, the
-    flipped codes counted).
+    flipped codes counted);
+(f) (b) with a spatial axis: phase 11's config with R1 (gamma 10 every
+    2nd step) at data N/2 x spatial 2 (each card half the rows of its data
+    row's images), against one card with its kinks pinned (each rank its
+    rows and band of every mask): a path + R1 step and another, the same
+    limits, the ranks' states bitwise equal, two deterministic runs
+    bitwise equal, and the split norm's launches (none of the whole-plane
+    kernel);
+(g) ``configs/tpu_v5e8_512.toml`` at data N/2 x spatial 2 with the global
+    batch as written (``write_card_config(..., spatial=True)``: with N = 4
+    only ``data_parallel`` 4 -> 2; ``native_loader`` false) beside data N
+    x spatial 1 (c's config) in the same call, 18 bare steps each as (c)
+    runs them (an R1 + path step at 0 and 16, path steps at 8): images/s,
+    every card's peak memory and launches per phase, the halo exchanges of
+    one step (pieces, bytes; their NCCL ``SendRecv`` kernels' ms in the
+    profiled step), the instance norms' all-gathers (count, bytes, timed
+    alone), the idle share per card; then its ``Trainer`` through the CLI
+    under deterministic kernels on 512x512 folders: 8 steps, a resume to
+    16, and 16 uninterrupted steps, the two ``16.tar`` bitwise equal.
 
 ``--checks`` runs only the lettered checks it names (all by default).
 ``nvidia-smi topo -m`` and every card's name and power limit are printed.
@@ -104,6 +126,9 @@ SERVE_TOL = 1e-5
 # limit was 2e-2) and MIN_HELD_PINNED (chip_smoke.held_mask; was 0.5).
 PINNED_GRAD_RTOL = 4e-4
 MIN_HELD_PINNED = 0.95
+# (f) and (g)'s ranks: a collective that waits longer than this raises
+# (the default, 1800 s, leaves room for an evaluation these ranks never run).
+COLLECTIVE_TIMEOUT_S = 600.0
 
 
 def log(msg: str) -> None:
@@ -148,6 +173,26 @@ def _counters():
     from one_to_many_gan_torch.ops.cuda import fused_instance_norm, warp, warp_bwd
 
     return (warp, warp_bwd, fused_instance_norm)
+
+
+def _split_counters():
+    """The split instance norm's two kernels (the spatial axis)."""
+    from one_to_many_gan_torch.ops.cuda import instance_norm as in_module
+
+    return (in_module.instance_norm_partials, in_module.instance_norm_apply)
+
+
+def _slice_kinks(masks, group) -> list:
+    """A rank's part of one card's kink pattern: its data row's rows of each
+    mask and, with a spatial axis, its band of a feature map's (NCHW)."""
+    out = []
+    for m in masks:
+        m = group.shard(m)
+        if group.spatial is not None and m.dim() == 4:
+            lo, hi = group.spatial.band(m.shape[2])
+            m = m[:, :, lo:hi]
+        out.append(m)
+    return out
 
 
 # -------------------------------------------------------------------- (a)
@@ -216,6 +261,21 @@ def kernels_on_cards(torch, cards: int) -> list:
                              f"cuda:{d}: int8 kernels differ from their plain versions at "
                              f"{cs._site_label(site)}")
             worst["int8_prepass"] = worst["int8_conv"] = 0.0
+            for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                err = 0.0
+                for b, c, h, w, relu in sorted(set(cs.SP_IN_SITES)):
+                    x = (torch.randn((b, c, h, w), generator=gen, device="cuda") * 2 + 0.5)
+                    x = x.to(dtype)
+                    whole = fused_instance_norm(x, relu=relu)
+                    for spatial in cs.SP_SPLITS:
+                        got, _ = cs._split_norm(torch, x, spatial, relu, kernel=True)
+                        plain, _ = cs._split_norm(torch, x, spatial, relu, kernel=False)
+                        err = max(err, (got.float() - plain.float()).abs().max().item(),
+                                  (got.float() - whole.float()).abs().max().item())
+                    del x, whole, got, plain
+                cs.check(err <= cs.IN_TOL[dtype_name], f"cuda:{d}: split instance norm "
+                         f"{dtype_name} off its plain version or the whole plane by {err}")
+                worst[f"split_instance_norm_{dtype_name}"] = err
             torch.cuda.synchronize()
         log(f"(a) cuda:{d}: every kernel within its limit; largest errors "
             + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
@@ -242,9 +302,10 @@ def _unpack_kinks(torch, packed) -> list:
 
 
 def _rank_step_check(group, config, det_config, work: str, n_steps: int, det_steps: int):
-    """(b) on one rank: the steps from the one card's states, then two
-    deterministic runs from seed 0. Rank 0 writes its snapshots; every rank
-    writes digests and launch counts."""
+    """(b) and (f) on one rank: the steps from the one card's states, then
+    two deterministic runs from seed 0. Rank 0 writes its snapshots; every
+    rank writes digests and launch counts (the whole-plane and the split
+    instance norm's)."""
     import torch
 
     from one_to_many_gan_torch import train
@@ -255,7 +316,7 @@ def _rank_step_check(group, config, det_config, work: str, n_steps: int, det_ste
     from one_to_many_gan_torch.parallel import replicate
 
     work = Path(work)
-    counters = _counters()
+    counters = _counters() + _split_counters()
     dev = group.device
     models = Models(config, device=dev, seed=0)
     state = init_train_state(config, models, seed=0)
@@ -267,8 +328,9 @@ def _rank_step_check(group, config, det_config, work: str, n_steps: int, det_ste
         batches = Batches(*(group.shard(b).to(dev) for b in data["batches"]))
         masks = _unpack_kinks(torch, data["kinks"])
         c0 = [c.launches for c in counters]
-        # the one card's kinks, this rank's rows of each (tests/test_torch_parallel.py)
-        with activations.pin([group.shard(m) for m in masks]) as pinned:
+        # the one card's kinks, this rank's rows (and band) of each
+        # (tests/test_torch_parallel.py, tests/test_torch_spatial.py)
+        with activations.pin(_slice_kinks(masks, group)) as pinned:
             state, metrics = step_fn(state, batches, cs._to(data["draws"], dev))
         torch.cuda.synchronize()
         cs.check(len(pinned.flips) == len(masks),
@@ -299,7 +361,9 @@ def _rank_step_check(group, config, det_config, work: str, n_steps: int, det_ste
     (work / f"rank{group.rank}.json").write_text(json.dumps(out))
 
 
-def step_against_one_card(torch, cards: int) -> dict:
+def step_against_one_card(torch, cards: int, spatial: int = 1) -> dict:
+    """(b), or with ``spatial`` 2 (f): the fused step on ``cards`` ranks
+    against one card."""
     from one_to_many_gan_torch import train
     from one_to_many_gan_torch.core.train_step import Batches, draw_step, make_train_step
     from one_to_many_gan_torch.core.train_step import synthetic_batch
@@ -312,9 +376,14 @@ def step_against_one_card(torch, cards: int) -> dict:
     config["training"]["deterministic_cuda_kernels"] = True
     det_config = cs.d_phase_config("bfloat16", cs.D_BATCH, path_interval=cs.G_INTERVAL)
     det_config["training"]["deterministic_cuda_kernels"] = True
+    label = "(b)" if spatial == 1 else "(f)"
+    for c in (config, det_config):
+        c["tpu"]["spatial_parallel"] = spatial
+        if spatial > 1:  # step 0 also an R1 step
+            c["tpu"].update(r1_gamma=10.0, r1_interval=2)
     lr = config["optimisation"]["learning_rate"]
     use_deterministic_kernels()
-    steps = 2  # a path step, then another
+    steps = 2  # a path (+ R1) step, then another
     with tempfile.TemporaryDirectory(dir=ROOT / "chiprun_out") as tmp:
         work = Path(tmp)
         models, state, gen = train.setup(config, seed=0, ada_p=cs.D_ADA_P, device="cuda")
@@ -336,7 +405,8 @@ def step_against_one_card(torch, cards: int) -> dict:
         _free(torch)
         t0 = time.perf_counter()
         distributed.spawn(_rank_step_check, cards, "cuda",
-                          (config, det_config, str(work), steps, cs.DP_STEPS))
+                          (config, det_config, str(work), steps, cs.DP_STEPS), spatial=spatial,
+                          timeout_s=COLLECTIVE_TIMEOUT_S)
         spawn_s = time.perf_counter() - t0
         ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(cards)]
         got = [torch.load(work / f"ranks{k}.pt", weights_only=False) for k in range(steps)]
@@ -346,23 +416,29 @@ def step_against_one_card(torch, cards: int) -> dict:
                              grad_rtol=float("inf"), min_held=0.0) for k in range(steps)]
     readings = [{key: e[key] for key in ("grad_rel", "grad_worst", "held_share")} for e in errs]
     flips = [[r["flips"][k] for r in ranks] for k in range(steps)]
-    log(f"(b) pinned readings per step: {readings}; flipped kinks, inputs per rank and step "
+    log(f"{label} pinned readings per step: {readings}; flipped kinks, inputs per rank and step "
         f"{flips}")
     cs.check(all(e["grad_rel"] <= PINNED_GRAD_RTOL and e["held_share"] >= MIN_HELD_PINNED
                  for e in errs),
-             f"(b) readings {readings} against gradients <= {PINNED_GRAD_RTOL} of a leaf's "
+             f"{label} readings {readings} against gradients <= {PINNED_GRAD_RTOL} of a leaf's "
              f"largest entry and >= {MIN_HELD_PINNED} of the parameters held")
     for k in range(steps):
         cs.check(all(r["digests"][k] == ranks[0]["digests"][k] for r in ranks),
                  f"step {k}: the ranks' states differ")
-    want = [cs.G_WARPS_PER_STEP, cs.G_WARP_BWDS_PER_STEP, cs.G_IN_PER_STEP]
-    cs.check(all(c == want for r in ranks for c in r["launches"]),
-             f"launches per rank and step {[r['launches'] for r in ranks]} (want {want})")
+    for k in range(steps):
+        # (f): step 0 is an R1 step, whose D pass on the reals adds the trunk's 3
+        n_in = cs.G_IN_PER_STEP + (3 if spatial > 1 and k == 0 else 0)
+        want = [cs.G_WARPS_PER_STEP, cs.G_WARP_BWDS_PER_STEP]
+        want += [n_in, 0, 0] if spatial == 1 else [0, n_in, n_in]
+        cs.check(all(r["launches"][k] == want for r in ranks),
+                 f"step {k}: launches per rank {[r['launches'][k] for r in ranks]} "
+                 f"(want {want}: warp, warp_bwd, IN, split partials, split apply)")
     cs.check(all(r["det"][0]["digest"] == r["det"][1]["digest"] for r in ranks),
              "two deterministic runs on the ranks differ")
     cs.check(all(r["det"][0]["digest"] == ranks[0]["det"][0]["digest"] for r in ranks),
              "the ranks' states differ after the deterministic runs")
-    log(f"(b) fused step ({cs.D_SIZE}x{cs.D_SIZE}, global batch {cs.D_BATCH}, float32), "
+    log(f"{label} fused step ({cs.D_SIZE}x{cs.D_SIZE}, global batch {cs.D_BATCH}, float32, "
+        f"data {cards // spatial} x spatial {spatial}), "
         f"{cards} ranks against one card, its kinks pinned (flips, inputs per rank and step "
         f"{flips}): "
         + "; ".join(f"step {k}: metrics {e['metric_rel']:.3g} relative, gradients "
@@ -400,7 +476,7 @@ def _rank_production(group, config, work: str, plain: bool = False):
     )
     from one_to_many_gan_torch.parallel import replicate
 
-    counters = _counters()
+    counters = _counters() + _split_counters()
     b_global = config["training"]["batch_size"]
     models, state, gen = train.setup(config, seed=0, ada_p=cs.D_ADA_P, device=group.device)
     dp = None if plain else group
@@ -466,12 +542,33 @@ def _rank_production(group, config, work: str, plain: bool = False):
         g_phase(state, b, draws.g, p_used)
 
     state.step = 3 * cs.P_INTERVAL + 1  # another step
+    sp = None if dp is None else dp.spatial
+    exchanges = {}
+    if sp is not None:  # what one other step exchanges over the spatial group
+        sp.log = []
+        one_step()
+        torch.cuda.synchronize()
+        for kind, shape, nbytes in sp.log:
+            e = exchanges.setdefault(kind, {"count": 0, "bytes": 0, "shapes": {}})
+            e["count"] += 1
+            e["bytes"] += nbytes
+            e["shapes"][str(shape)] = e["shapes"].get(str(shape), 0) + 1
+        # the instance norms' all-gathers alone, each shape timed
+        in_ms = 0.0
+        for shape, n in exchanges.get("in_partials", {}).get("shapes", {}).items():
+            size, planes = (int(v) for v in shape.strip("()").split(", ")[:2])
+            part = torch.zeros((planes, 2), device=group.device)
+            out = torch.empty((size * planes, 2), device=group.device)
+            in_ms += n * cs._cuda_ms(torch, lambda o=out, q=part: dist.all_gather_into_tensor(
+                o, q, group=sp.pg), 10)
+        exchanges["in_partials_ms_alone"] = in_ms
+        sp.log = None
     with contextlib.redirect_stdout(io.StringIO()):
         prof = cs.profile_call(torch, one_step, f"rank {group.rank}",
                                select=lambda n: "nccl" in n.lower())
     (Path(work) / f"rank{group.rank}.json").write_text(json.dumps({
         "rank": group.rank, "rows": rows, "launches": launches, "allreduce": allreduce,
-        "loop_ms": loop_ms, "loop_first_step": cs.P_BARE_STEPS,
+        "loop_ms": loop_ms, "loop_first_step": cs.P_BARE_STEPS, "exchanges": exchanges,
         "profile": {k: prof[k] for k in ("wall_ms", "busy_ms", "idle_share")},
         "nccl": prof["selected"], "top": prof["kernels"][:8]}))
 
@@ -538,8 +635,9 @@ def production_steps(torch, cards: int) -> dict:
     for r in [base, *ranks]:
         for row in r["rows"]:
             r1 = row["step"] % cs.P_R1_INTERVAL == 0
-            want_d = [cs.P_D_WARPS, 0, len(cs.P_D_IN_SITES) + (len(cs.P_R1_IN_SITES) if r1 else 0)]
-            want_g = [cs.P_G_WARPS, cs.P_G_WARP_BWDS, len(cs.P_G_IN_SITES)]
+            want_d = [cs.P_D_WARPS, 0, len(cs.P_D_IN_SITES) + (len(cs.P_R1_IN_SITES) if r1 else 0),
+                      0, 0]
+            want_g = [cs.P_G_WARPS, cs.P_G_WARP_BWDS, len(cs.P_G_IN_SITES), 0, 0]
             cs.check(row["d_launches"] == want_d and row["g_launches"] == want_g,
                      f"rank {r['rank']} step {row['step']}: launches D {row['d_launches']} "
                      f"G {row['g_launches']} (want {want_d}, {want_g})")
@@ -571,7 +669,8 @@ def production_steps(torch, cards: int) -> dict:
                                         for k, v in ar.items())
         + f"); NCCL kernels in one other step's profile, ms per card {nccl_ms}; idle share "
         f"per card {idle}")
-    log(f"  launches per card over {cs.P_BARE_STEPS} steps (warp, warp_bwd, IN): "
+    log(f"  launches per card over {cs.P_BARE_STEPS} steps (warp, warp_bwd, IN, split "
+        "partials, split apply): "
         + ", ".join(f"cuda:{r['rank']} {r['launches']}" for r in ranks))
     return {"overrides": changes, "one_card": one, **many, "ratio_in_call": ratio,
             "loop_ratio_in_call": loop_ratio,
@@ -583,6 +682,149 @@ def production_steps(torch, cards: int) -> dict:
             "profiles": {r["rank"]: {"profile": r["profile"], "top": r["top"],
                                      "nccl": r["nccl"]} for r in [*ranks]},
             "one_card_profile": {"profile": base["profile"], "top": base["top"]}}
+
+
+# -------------------------------------------------------------------- (g)
+
+
+def _nccl_by_kind(kernels: list) -> dict:
+    """The ms of a profiled step's NCCL kernels by collective."""
+    out: dict[str, float] = {}
+    for k in kernels:
+        name = k["name"]
+        if not name.startswith("ncclDev"):
+            continue
+        kind = next((c for c in ("SendRecv", "AllGather", "AllReduce", "Broadcast")
+                     if c in name), "other")
+        out[kind] = out.get(kind, 0.0) + k["ms"]
+    return out
+
+
+def _spatial_trainer(torch, cards: int, root: Path) -> dict:
+    """(g)'s Trainer at data N/2 x spatial 2 through the CLI, deterministic:
+    8 steps, a resume to 16, and 16 uninterrupted; the two 16.tar."""
+    from one_to_many_gan_torch.data import write_synthetic_dataset_dirs
+    from one_to_many_gan_torch.presets import write_card_config
+
+    for domain, seed in (("prints", 0), ("marks", 9)):
+        write_synthetic_dataset_dirs(root / domain, n_train=cs.T_TRAIN_IMAGES,
+                                     n_test=cs.T_TEST_IMAGES,
+                                     image_size=(cs.P_SIZE, cs.P_SIZE), seed=seed)
+    half, whole = cs.P_CKPT // 2, cs.P_CKPT
+
+    def config(run: str, steps: int) -> Path:
+        path = root / f"{run}_{steps}.toml"
+        write_card_config(
+            cs.PROD_CONFIG, path, cards=cards, spatial=True, native_loader=False,
+            deterministic_cuda_kernels=True, shoeprint_data_dir=str(root / "prints"),
+            shoemark_data_dir=str(root / "marks"), checkpoint_directory=str(root),
+            training_run=run, training_steps=steps, log_interval=half,
+            checkpoint_interval=half, n_evaluation_images=cs.T_EVAL_IMAGES)
+        return path
+
+    _free(torch)
+    t0 = time.perf_counter()
+    _train_cli(config("a", half), f"{half} steps at spatial 2")
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    second = _train_cli(config("a", whole), f"the resume to {whole} at spatial 2")
+    second_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _train_cli(config("b", whole), f"{whole} uninterrupted steps at spatial 2")
+    whole_s = time.perf_counter() - t0
+    models = sorted(p.name for p in (root / "a" / "models").iterdir())
+    diffs, n_tensors, n_elems = cs._ckpt_differences(
+        torch, cs._load_ckpt(torch, root / "a" / "models" / f"{whole}.tar"),
+        cs._load_ckpt(torch, root / "b" / "models" / f"{whole}.tar"))
+    cs.check(f"Resumed from checkpoint at step {half}" in second.splitlines(),
+             f"the resumed run did not print 'Resumed from checkpoint at step {half}'")
+    cs.check(not diffs, f"{whole}.tar of {half} + a resume differs from {whole} uninterrupted "
+             f"steps at {diffs[:5]}")
+    log(f"(g) the training CLI at data {cards // 2} x spatial 2 (deterministic): {half} steps "
+        f"in {first_s:.1f} s, the resume to {whole} in {second_s:.1f} s, {whole} uninterrupted "
+        f"in {whole_s:.1f} s (each with the ranks' start, {cs.T_EVAL_IMAGES} validation images "
+        f"a checkpoint and the saves); checkpoints {models}; {whole}.tar bitwise the "
+        f"uninterrupted run's ({n_tensors} tensors, {n_elems} elements)")
+    return {"first_s": first_s, "second_s": second_s, "whole_s": whole_s,
+            "checkpoints": models, "tensors_compared": n_tensors}
+
+
+def spatial_production(torch, cards: int) -> dict:
+    """(g): the production config at data N/2 x spatial 2 beside data N x
+    spatial 1, then its Trainer's resume."""
+    from one_to_many_gan_torch.config import load_config
+    from one_to_many_gan_torch.parallel import distributed
+    from one_to_many_gan_torch.presets import write_card_config
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "chiprun_out") as tmp:
+        work = Path(tmp)
+        changes = write_card_config(cs.PROD_CONFIG, work / "sp.toml", cards=cards, spatial=True,
+                                    native_loader=False)
+        config = load_config(work / "sp.toml")
+        write_card_config(cs.PROD_CONFIG, work / "dp.toml", cards=cards, native_loader=False)
+        dp_config = load_config(work / "dp.toml")
+        log(f"(g) {cs.PROD_CONFIG.name} on {cards} cards keeping its spatial axis, overrides "
+            f"{changes}")
+        _free(torch)
+        (work / "dp").mkdir()
+        distributed.spawn(_rank_production, cards, "cuda", (dp_config, str(work / "dp")),
+                          timeout_s=COLLECTIVE_TIMEOUT_S)
+        distributed.spawn(_rank_production, cards, "cuda", (config, str(work)),
+                          spatial=config["tpu"]["spatial_parallel"],
+                          timeout_s=COLLECTIVE_TIMEOUT_S)
+        dp_ranks = [json.loads((work / "dp" / f"rank{r}.json").read_text())
+                    for r in range(cards)]
+        ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(cards)]
+        trainer = _spatial_trainer(torch, cards, work / "trainer")
+    b_global = config["training"]["batch_size"]
+    dp, sp = _summary(dp_ranks, b_global), _summary(ranks, b_global)
+    for r in ranks:
+        for row in r["rows"]:
+            r1 = row["step"] % cs.P_R1_INTERVAL == 0
+            n_d = len(cs.P_D_IN_SITES) + (len(cs.P_R1_IN_SITES) if r1 else 0)
+            want_d = [cs.P_D_WARPS, 0, 0, n_d, n_d]
+            n_g = len(cs.P_G_IN_SITES)
+            want_g = [cs.P_G_WARPS, cs.P_G_WARP_BWDS, 0, n_g, n_g]
+            cs.check(row["d_launches"] == want_d and row["g_launches"] == want_g,
+                     f"rank {r['rank']} step {row['step']}: launches D {row['d_launches']} "
+                     f"G {row['g_launches']} (want {want_d}, {want_g})")
+            cs.check(all(np.isfinite(v) for k, v in row.items() if k.endswith("loss")),
+                     f"rank {r['rank']} step {row['step']}: a loss is not finite")
+    for r in ranks[1:]:
+        cs.check(all(a[k] == b[k] for a, b in zip(r["rows"], ranks[0]["rows"], strict=True)
+                     for k in a if k.endswith(("loss", "acc")) or k == "ada_p"),
+                 f"rank {r['rank']}'s metrics differ from rank 0's")
+    nccl = {r["rank"]: _nccl_by_kind(r["nccl"]) for r in ranks}
+    idle = {r["rank"]: r["profile"]["idle_share"] for r in ranks}
+    ex = ranks[0]["exchanges"]
+    halo = {k: ex[k] for k in ("halo", "halo_t") if k in ex}
+    log("(g) " + _line(f"data {cards} x spatial 1, global batch {b_global}", dp)
+        + f"; idle share per card {[r['profile']['idle_share'] for r in dp_ranks]}")
+    log("(g) " + _line(f"data {cards // 2} x spatial 2, global batch {b_global}", sp))
+    log(f"  spatial 2 against spatial 1 in this call: "
+        f"{sp['images_per_s'] / dp['images_per_s']:.3f}x (phases synchronised), "
+        f"{sp['loop_images_per_s'] / dp['loop_images_per_s']:.3f}x (as a loop)")
+    log("  peak GiB per card, spatial 2: " + ", ".join(
+        f"cuda:{k} D {v['d_gib']:.2f} G {v['g_gib']:.2f}" for k, v in sp["peak_gib"].items())
+        + "; spatial 1: " + ", ".join(
+        f"cuda:{k} D {v['d_gib']:.2f} G {v['g_gib']:.2f}" for k, v in dp["peak_gib"].items()))
+    log("  one other step's exchanges on cuda:0: " + ", ".join(
+        f"{k} {v['count']} pieces {v['bytes'] / 2**20:.2f} MiB" for k, v in ex.items()
+        if isinstance(v, dict)) + f"; the IN all-gathers alone {ex['in_partials_ms_alone']:.3f} "
+        f"ms; NCCL kernel ms per card in the profiled step {nccl}; idle share per card {idle}")
+    log(f"  launches per card over {cs.P_BARE_STEPS} steps (warp, warp_bwd, IN, split "
+        "partials, split apply): " + ", ".join(f"cuda:{r['rank']} {r['launches']}"
+                                               for r in ranks))
+    return {"overrides": changes, "data_only": dp, **sp,
+            "ratio_to_data_only": sp["images_per_s"] / dp["images_per_s"],
+            "loop_ratio_to_data_only": sp["loop_images_per_s"] / dp["loop_images_per_s"],
+            "exchanges": ex, "halo": halo, "nccl_ms_by_kind": nccl, "idle_share": idle,
+            "data_only_idle_share": {r["rank"]: r["profile"]["idle_share"] for r in dp_ranks},
+            "launches": {r["rank"]: r["launches"] for r in ranks},
+            "data_only_launches": {r["rank"]: r["launches"] for r in dp_ranks},
+            "profiles": {r["rank"]: {"profile": r["profile"], "top": r["top"],
+                                     "nccl": r["nccl"]} for r in ranks},
+            "trainer": trainer}
 
 
 # -------------------------------------------------------------------- (d)
@@ -805,12 +1047,14 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--cards", type=int, default=4)
-    ap.add_argument("--checks", default="abcde",
+    ap.add_argument("--checks", default="abcdefg",
                     help="the lettered checks to run, e.g. 'e' (default: all)")
     args = ap.parse_args(argv)
     checks = {"a": ("kernels", kernels_on_cards), "b": ("step", step_against_one_card),
               "c": ("production", production_steps), "d": ("trainer", trainer_resume),
-              "e": ("serve", serve_data_parallel)}
+              "e": ("serve", serve_data_parallel),
+              "f": ("spatial_step", lambda torch, cards: step_against_one_card(torch, cards, 2)),
+              "g": ("spatial_production", spatial_production)}
     unknown = set(args.checks) - set(checks)
     if unknown or not args.checks:
         ap.error(f"--checks takes letters of {''.join(checks)}, got {args.checks!r}")

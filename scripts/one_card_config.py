@@ -1,13 +1,16 @@
 """Write the copy of a config written for several devices that N cards run.
 
     python scripts/one_card_config.py configs/tpu_v5e8_512.toml one_card.toml \
-        [--cards N] [key=value ...]
+        [--cards N] [--keep-spatial] [key=value ...]
 
 The copy runs one data-parallel replica of the config on each of N cards
 (default 1; ``one_to_many_gan_torch.presets.card_overrides``:
 ``data_parallel`` N, ``batch_size`` N replicas' share of the global batch,
 ``spatial_parallel`` 1; with N = 4 ``configs/tpu_v5e8_512.toml`` keeps its
-``data_parallel = 4`` and ``batch_size = 32``); each ``key=value`` (a TOML value, e.g.
+``data_parallel = 4`` and ``batch_size = 32``). With ``--keep-spatial``
+the config's spatial axis stays: ``data_parallel`` N // ``spatial_parallel``
+and the global batch as written (with N = 4 the production config runs
+data 2 x spatial 2 at batch 32). Each ``key=value`` (a TOML value, e.g.
 ``shoeprint_data_dir='"/data/prints"'``, or ``native_loader=false`` on a
 host without the libjpeg and libpng headers) replaces another key's line.
 Every key changed is printed with its old and new value. Then
@@ -33,6 +36,8 @@ def main(argv: list[str]) -> None:
     if len(argv) < 2:
         sys.exit(__doc__)
     cards = 1
+    spatial = "--keep-spatial" in argv
+    argv = [a for a in argv if a != "--keep-spatial"]
     if "--cards" in argv:
         i = argv.index("--cards")
         cards = int(argv[i + 1])
@@ -45,7 +50,8 @@ def main(argv: list[str]) -> None:
     before = load_config(src)
     flat = {k: v for section in before.values() if isinstance(section, dict)
             for k, v in section.items()}
-    for key, value in write_card_config(src, dst, cards=cards, **values).items():
+    for key, value in write_card_config(src, dst, cards=cards, spatial=spatial,
+                                              **values).items():
         print(f"override {key}: {flat.get(key)!r} -> {value!r}")
     print(f"wrote {dst}")
 

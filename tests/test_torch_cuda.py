@@ -25,7 +25,10 @@ over the plane in different orders, and the closed form and autograd's
 chain of plain ops round differently; 1.2e-7 measured on the CPU) and at
 the JAX package's 0.05 in bfloat16 (autograd rounds every step of the
 plain chain to bfloat16; 0.016 measured on the CPU on gradients of
-magnitude 2). The int8 pre-pass and the fused int8 conv are held to
+magnitude 2). The split instance norm (partials, then apply,
+of a plane cut into bands of rows: the spatial axis) is held to its plain
+version and to the whole-plane kernel at the same 2e-5 / 0.05, and two
+launches give the same bits. The int8 pre-pass and the fused int8 conv are held to
 their plain versions bitwise (the largest |value| is exact in any order,
 integer sums are exact in any order, and every rounding is the plain
 version's), and two launches give the same bits.
@@ -664,3 +667,60 @@ def test_int8_conv_raises_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="16-byte boundary"):
         fused_int8_conv(misaligned.view(x.shape), s, xs, w_q, w_scale, d, **kw)
     assert fused_int8_conv.launches == before
+
+
+# ------------------------------------------------------ split instance norm
+
+
+def _split(x, spatial, relu, kernel=True):
+    """Bands of ``x``'s rows: every band's partials stacked in band order (the
+    all-gather's result), then every band's apply."""
+    from one_to_many_gan_torch.parallel import halo
+
+    part = in_module.instance_norm_partials if kernel else in_module.partials_plain
+    apply = in_module.instance_norm_apply if kernel else in_module.apply_plain
+    bands = [x[:, :, lo:hi].contiguous()
+             for lo, hi in (halo.band(x.shape[2], spatial, t) for t in range(spatial))]
+    gathered = torch.stack([part(b) for b in bands])
+    return torch.cat([apply(b, gathered, relu=relu) for b in bands], 2), gathered
+
+
+@pytest.mark.parametrize("spatial", [2, 4, 8])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "shape",
+    # the trunk's ragged planes (packed), a 254-row one (resident), a 512^2
+    # encode plane (cluster), and planes with fewer rows than bands
+    [(16, 512, 62, 62), (8, 128, 254, 254), (2, 64, 512, 512), (3, 5, 3, 7)],
+)
+def test_split_instance_norm_matches_plain_and_whole_plane(cuda, shape, dtype, relu, spatial):
+    x = (torch.randn(shape, generator=cuda, device="cuda") * 2 + 0.5).to(dtype)
+    got, gathered = _split(x, spatial, relu)
+    plain, plain_gathered = _split(x, spatial, relu, kernel=False)
+    whole = fused_instance_norm(x, relu=relu)
+    again, _ = _split(x, spatial, relu)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(gathered[:, -1], plain_gathered[:, -1])  # the band counts
+    tol = TOL[dtype]
+    assert (got.float() - plain.float()).abs().max().item() <= tol
+    assert (got.float() - whole.float()).abs().max().item() <= tol
+
+
+def test_split_instance_norm_empty_band_launches_nothing(cuda):
+    x = torch.randn((2, 3, 0, 5), device="cuda")
+    p0, a0 = in_module.instance_norm_partials.launches, in_module.instance_norm_apply.launches
+    part = in_module.instance_norm_partials(x)
+    assert part.shape == (7, 2) and torch.equal(part, torch.zeros_like(part))
+    assert in_module.instance_norm_apply(x, part[None]).shape == x.shape
+    assert (in_module.instance_norm_partials.launches, in_module.instance_norm_apply.launches) \
+        == (p0, a0)
+
+
+def test_split_instance_norm_raises_instead_of_falling_back(cuda):
+    x = torch.randn((2, 3, 4, 5), device="cuda")
+    with pytest.raises(ValueError, match="expected .S, 7, 2. float32"):
+        in_module.instance_norm_apply(x, torch.zeros((2, 6, 2), device="cuda"))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        in_module.instance_norm_partials(x.half())

@@ -459,9 +459,23 @@ def test_serving_models_hold_no_discriminator():
 
 
 def test_make_d_phase_refuses_options_not_ported():
-    cfg = port_tiny_config((SIZE, SIZE), BATCH, tpu={"spatial_parallel": 2})
-    with pytest.raises(NotImplementedError, match="tpu.spatial_parallel.*ROADMAP.md"):
+    """No training option is refused. A ``spatial_parallel = 2`` config
+    without a group runs the one-process phase, as the JAX package does
+    without a mesh: bitwise the ``spatial_parallel = 1`` phase."""
+    from one_to_many_gan_torch import train as port_train
+
+    runs = []
+    for sp in (1, 2):
+        cfg = port_tiny_config((SIZE, SIZE), BATCH, tpu={"spatial_parallel": sp, "r1_gamma": 10.0})
         check_training_options(cfg)
+        models, state, gen = port_train.setup(cfg, seed=0, ada_p=0.5, device="cpu")
+        images = [port_ts.synthetic_batch(gen, BATCH, (SIZE, SIZE), 1) for _ in range(2)]
+        state, metrics = port_ts.make_d_phase(cfg, models)(
+            state, *images, port_ts.draw_d_phase(gen, cfg, models))
+        runs.append(({k: v.item() for k, v in metrics.items()},
+                     [p.detach().clone() for p in state.discriminator.parameters()]))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1], strict=True))
     check_training_options(port_tiny_config((SIZE, SIZE), BATCH, tpu={"data_parallel": 2}))
     check_training_options(port_tiny_config((SIZE, SIZE), BATCH, tpu={"ada_supersample": True}))
     check_training_options(port_tiny_config((SIZE, SIZE), BATCH, tpu={"ada_pallas": True}))

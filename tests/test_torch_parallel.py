@@ -28,8 +28,10 @@ R1 (gamma 10) every 2nd step: step 0 is a path + R1 step, step 1 another.
   3.tar resumed in one process at the global batch gives rank 0's FID/KID
   line for it, and continues within the step tolerance of the 4-rank
   run's logged means.
-- (f) the config's resolution of ``data_parallel`` and the four-card
-  preset.
+- (e') the CLI at data 2 x spatial 2, resumed in one process and back
+  (``tests/test_torch_spatial.py`` holds the spatial steps themselves).
+- (f) the config's resolution of ``data_parallel`` and ``spatial_parallel``,
+  and the four-card presets (data 4, and data 2 x spatial 2).
 - (g) ``InferenceEngine(data_parallel=2)`` on two CPU replicas against one
   engine.
 """
@@ -532,6 +534,56 @@ def test_train_cli_runs_four_ranks_and_one_process_resumes_it(tmp_path):
                                    err_msg=f"step {want['step']}: {name}")
 
 
+def test_train_cli_runs_two_by_two_and_resumes_across_layouts(tmp_path):
+    """The CLI at data 2 x spatial 2 (4 gloo ranks, each half the rows of
+    its data row's images): 4 steps with checkpoints at 2 and 4. Its 2.tar
+    resumed in one process continues to 4 within the step tolerance of the
+    2x2 run's logged means; the one process's 4.tar then resumed at 2x2
+    continues to 6 within it of the one process's own continuation (one
+    card's checkpoint schema both ways)."""
+    from one_to_many_gan_torch.core.trainer import Trainer
+
+    for domain, seed in (("shoeprints", 0), ("shoemarks", 9)):
+        write_synthetic_dataset_dirs(tmp_path / domain, n_train=16, n_test=2,
+                                     image_size=(SIZE, SIZE), seed=seed)
+    tpu = "\n[tpu]\nkeep_checkpoints = 5\nr1_gamma = 10.0\nr1_interval = 2\n"
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    run = tmp_path / "checkpoints" / "test_run"
+
+    def config(steps: int, grid: bool):
+        section = tpu + ("data_parallel = 2\nspatial_parallel = 2\n" if grid else "")
+        return write_tiny_config(tmp_path, batch_size=BATCH, tpu_section=section,
+                                 training_steps=steps, checkpoint_interval=2,
+                                 n_evaluation_images=4)
+
+    def grid_cli(steps: int) -> dict:
+        proc = subprocess.run([sys.executable, "-m", "one_to_many_gan_torch.train",
+                               str(config(steps, True)), "--device", "cpu"], cwd=REPO, env=env,
+                              capture_output=True, text=True, timeout=600, check=False)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        return _means(run / "metrics.jsonl")[-1]
+
+    def one_process(steps: int) -> dict:
+        trainer = Trainer(load_config(config(steps, False)), device="cpu", verbose=False)
+        assert trainer.start_step == steps - 2
+        assert trainer.run().step == steps
+        return _means(run / "metrics.jsonl")[-1]
+
+    def close(got, want):
+        assert got["step"] == want["step"] and set(got) == set(want)
+        for name in want:
+            np.testing.assert_allclose(got[name], want[name], **STEP_TOL,
+                                       err_msg=f"step {want['step']}: {name}")
+
+    grid4 = grid_cli(4)
+    assert sorted(p.name for p in (run / "models").iterdir()) == ["2.tar", "4.tar"]
+    (run / "models" / "4.tar").unlink()
+    close(one_process(4), grid4)  # 2x2 -> one process
+    one6 = one_process(6)
+    (run / "models" / "6.tar").unlink()
+    close(grid_cli(6), one6)  # one process -> 2x2
+
+
 # ----------------------------------------------------------- (f) the config
 
 
@@ -550,8 +602,17 @@ def test_data_parallel_resolution(tmp_path):
     config["tpu"]["data_parallel"] = 0
     with pytest.raises(ValueError, match="-1 .* or >= 1"):
         check_training_options(config)
+    # the spatial axis, as make_mesh resolves it: 4 x 2 needs 8 cards, -1
+    # takes the cards a spatial column leaves, spatial must divide the cards
     config["tpu"].update(data_parallel=4, spatial_parallel=2)
-    with pytest.raises(NotImplementedError, match=r"tpu\.spatial_parallel = 2 is not ported"):
+    with pytest.raises(ValueError, match="needs 8 devices, have 4"):
+        resolve_data_parallel(config, 4)
+    assert resolve_data_parallel(config, 8) == 4
+    config["tpu"]["data_parallel"] = -1
+    assert resolve_data_parallel(config, 4) == 2
+    assert distributed.data_parallel_ranks(config, "cpu") == 2  # one data row x 2
+    config["tpu"]["spatial_parallel"] = 3
+    with pytest.raises(ValueError, match="spatial_parallel=3 must divide the device count 4"):
         resolve_data_parallel(config, 4)
     # the D phase's CLI runs one process and refuses more by name
     two = write_tiny_config(tmp_path, batch_size=BATCH, tpu_section="\n[tpu]\ndata_parallel = 2\n")
@@ -576,6 +637,16 @@ def test_four_card_preset_of_the_production_config(tmp_path):
         warnings.simplefilter("error")
         write_card_config(src, tmp_path / "one.toml")
     assert load_config(tmp_path / "one.toml")["training"]["batch_size"] == 8
+    # keeping the spatial axis: data 2 x spatial 2 at the global batch as written
+    assert card_overrides(config, 4, spatial=True) == {"data_parallel": 2}
+    assert write_card_config(src, tmp_path / "2x2.toml", cards=4, spatial=True,
+                             native_loader=False) == {"data_parallel": 2, "native_loader": False}
+    two = load_config(tmp_path / "2x2.toml")
+    assert (two["tpu"]["data_parallel"], two["tpu"]["spatial_parallel"],
+            two["training"]["batch_size"]) == (2, 2, 32)
+    assert resolve_data_parallel(two, 4) == 2
+    with pytest.raises(ValueError, match="spatial_parallel=2 must divide the 3 cards"):
+        card_overrides(config, 3, spatial=True)
 
 
 # ---------------------------------------------------------- (g) serving

@@ -40,7 +40,11 @@ from one_to_many_gan_torch import convert as port_convert
 from one_to_many_gan_torch import export as port_export
 from one_to_many_gan_torch import serve as port_serve
 from one_to_many_gan_torch import train as port_train
-from one_to_many_gan_torch.config import check_training_options, load_config
+from one_to_many_gan_torch.config import (
+    check_training_options,
+    load_config,
+    resolve_data_parallel,
+)
 from one_to_many_gan_torch.core import evaluation as port_evaluation
 from one_to_many_gan_torch.core import train_step as port_ts
 from one_to_many_gan_torch.core.state import Models, eval_generator, init_train_state
@@ -424,8 +428,8 @@ def test_s2d_pack_loads_and_trains_as_without_it(tmp_path):
 def test_one_card_copy_of_the_production_config(tmp_path):
     src = chip_smoke.PROD_CONFIG
     source = load_config(src)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        check_training_options(source)
+    check_training_options(source)  # data 4 x spatial 2: 8 ranks
+    assert resolve_data_parallel(source, 8) * source["tpu"]["spatial_parallel"] == 8
     assert card_overrides(source) == {"data_parallel": 1, "batch_size": 8,
                                           "spatial_parallel": 1}
     changes = write_card_config(src, tmp_path / "one.toml",

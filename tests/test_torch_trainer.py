@@ -360,15 +360,22 @@ def test_halt_on_nonfinite_off_trains_through(tmp_path):
 @pytest.mark.parametrize(("key", "value", "error", "match"), [
     pytest.param("data_parallel", "2", ValueError, "runs 2 ranks: train through",
                  id="data_parallel-2"),
-    pytest.param("spatial_parallel", "2", NotImplementedError, "not ported",
+    pytest.param("spatial_parallel", "2", ValueError, "runs 2 ranks: train through",
                  id="spatial_parallel-2"),
 ])
 def test_refused_tpu_keys_raise_by_name(tmp_path, key, value, error, match):
-    """``spatial_parallel > 1`` is refused; more than one data-parallel
-    rank needs a process group (the CLI or torchrun starts one), so a
-    Trainer of one process refuses it by name."""
+    """More than one rank (two data rows, or one data row split over two
+    spatial ranks) needs a process group (the CLI or torchrun starts one),
+    so a Trainer of one process refuses it by name; so does a group whose
+    spatial ranks are not the config's."""
     with pytest.raises(error, match=rf"tpu\.{key} = .*{match}"):
         _trainer(_config(tmp_path, f"{key} = {value}"))
+    if key == "spatial_parallel":
+        from one_to_many_gan_torch.parallel import DataParallel
+
+        group = DataParallel(2, 0, torch.device("cpu"))  # 2 data rows, spatial 1
+        with pytest.raises(ValueError, match=r"tpu\.spatial_parallel = 2, .* group has 1"):
+            _trainer(_config(tmp_path, f"{key} = {value}"), group=group)
 
 
 @pytest.mark.parametrize(("key", "value"), [
