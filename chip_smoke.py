@@ -2,7 +2,8 @@
 path, the discriminator phase of training, the fused training step, the
 training run (the Trainer: data, logs, checkpoints, resume) and the
 production config's training options (EMA, lazy R1, split phases, the
-2x supersampled ADA warp, rematerialisation, the C++ image loader).
+2x supersampled ADA warp, rematerialisation, the C++ image loader), int8
+serving, the spatial axis on one card and evaluation with InceptionV3.
 
     python3 chip_smoke.py
 
@@ -154,7 +155,24 @@ started together), then runs, in order:
    (mean |delta| in uint8 levels, tanh PSNR); (c) the int8 engine on the
    card against the CPU at n = 8: the card's int8 kernels on the CPU's
    inputs of every site bitwise the CPU's, the images as far apart as
-   int8 and float32 may be, the flipped codes of every site counted.
+   int8 and float32 may be, the flipped codes of every site counted;
+19. the spatial axis on one card: (a) the split instance norm (a band's
+   partials, then the bands' statistics combined and applied) at the 32
+   sites of a 512x512 step of the production config as data 2 x spatial 2
+   runs it, cut into 2 and 4 bands of rows, against its plain version and
+   the whole-plane kernel, with the kernels', plain versions', library
+   calls' and bounds' times; (b) banded fused steps at phase 11's config in
+   a spatial group of one card, against the steps without a group;
+20. evaluation with InceptionV3: random torchvision-format weights from
+   seed 0 written to a temporary ``.pt`` and named by
+   ``OTM_INCEPTION_WEIGHTS``; the validation checkpoint of
+   ``configs/default.toml`` (512x256, 1 channel) under
+   ``require_inception_fid = true``: 64 generated images (the generator's
+   instance-norm kernel launched for each encode) scored against 64 reals,
+   the ``[inception_v3_pool3]`` tag in the log and ``metrics.jsonl``, the
+   FID's and KID's times; the extractor's features on the card against the
+   CPU (float32, TF32 off), its images/s at batch 32, the 299x299 resize's
+   time, and a ``utils.profiling.trace`` of one extractor call.
    Four cards: ``scripts/multi_card_smoke.py``.
 
 Any failed check raises, and the script exits non-zero. Before its last
@@ -391,6 +409,17 @@ SP_STEPS = 2
 # leaf's largest entry (the encoder's stem weight, a sum over every pixel
 # of the batch). Limit 1e-3.
 SP_GRAD_RTOL = 1e-3
+# Phase 20: evaluation with InceptionV3 at CONFIG (512x256, 1 channel), on
+# random torchvision-format weights from seed 0 (the repository ships
+# none): 64 validation images at the config's inference batch of 32
+# against 64 reals; the extractor's rate over 128 images at batch 32; its
+# features on the card against the CPU on 8 generated images, float32 with
+# TF32 off, at tests/test_torch_inception.py's graph tolerance (rtol 1e-3,
+# atol 1e-3 of the mean |feature|: the JAX package's own for its graph).
+I_EVAL_IMAGES = 64
+I_RATE_IMAGES, I_BATCH = 128, 32
+I_CARD_CPU_IMAGES = 8
+INCEPTION_CARD_CPU_TOL = 1e-3
 # Card against CPU, one float32 R1 term (batch 4, 256x256, TF32 off) and
 # its gradient in every discriminator parameter, against a float64 pass on
 # the CPU with the float64 pass's kink pattern pinned (as phase 12). The
@@ -3514,6 +3543,153 @@ def phase_split_norm(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 20
+
+
+@contextlib.contextmanager
+def _timed_calls(module, names: tuple, times: dict):
+    """Replace ``module.<name>`` for each of ``names`` by a wrapper that
+    appends each call's wall seconds to ``times[name]``; restored after."""
+    saved = {name: getattr(module, name) for name in names}
+
+    def timed(name):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = saved[name](*args, **kwargs)
+            times.setdefault(name, []).append(time.perf_counter() - t0)
+            return out
+        return call
+
+    for name in names:
+        setattr(module, name, timed(name))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+def phase_inception(torch) -> dict:
+    """20. Evaluation with InceptionV3: the validation checkpoint at CONFIG
+    under ``require_inception_fid`` with weights given through
+    ``OTM_INCEPTION_WEIGHTS``; the extractor's features on the card against
+    the CPU, its rate, the resize's time and a trace of one call."""
+    import re
+    import tempfile
+
+    from PIL import Image
+
+    from one_to_many_gan_torch.config import load_config
+    from one_to_many_gan_torch.core import evaluation
+    from one_to_many_gan_torch.core.state import Models, init_train_state
+    from one_to_many_gan_torch.data import BatchIterator, synthetic_images
+    from one_to_many_gan_torch import metrics
+    from one_to_many_gan_torch.metrics import fid, inception, inception_v3
+    from one_to_many_gan_torch.ops.cuda import fused_instance_norm
+    from one_to_many_gan_torch.ops.resample import pil_bicubic_resize
+    from one_to_many_gan_torch.utils import profiling
+
+    config = load_config(CONFIG)
+    h, w = config["data"]["image_size"]
+    batch = config["evaluation"]["inference_batch_size"]
+    state_dict = inception_v3.random_state_dict(0)
+    prints = synthetic_images(I_EVAL_IMAGES, (h, w), seed=0)
+    reals = synthetic_images(I_EVAL_IMAGES, (h, w), seed=1)
+    saved_env = os.environ.get(inception.WEIGHTS_ENV)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_inception_") as tmp:
+        weights = Path(tmp) / "inception_v3_random.pt"
+        torch.save({k: torch.from_numpy(v) for k, v in state_dict.items()}, weights)
+        os.environ[inception.WEIGHTS_ENV] = str(weights)
+        config["training"].update(checkpoint_directory=Path(tmp), training_run="inception")
+        config["evaluation"].update(n_evaluation_images=I_EVAL_IMAGES)
+        config["tpu"]["require_inception_fid"] = True
+        models = Models(config, device="cuda", seed=0)
+        state = init_train_state(config, models, seed=0)
+        val_iter = BatchIterator(prints, batch, shuffle=False, flip_prob=0.5, seed=0)
+        gen = torch.Generator("cuda").manual_seed(7_000_000)
+        times: dict = {}
+        fused_instance_norm.launches = 0
+        t0 = time.perf_counter()
+        try:
+            with _timed_calls(metrics, ("default_extractor",), times), \
+                    _timed_calls(fid, ("frechet_distance", "kernel_distance"), times):
+                fid_score, kid_score = evaluation.val_checkpoint(
+                    0, config, models, state, val_iter, gen, real_images=reals)
+        finally:
+            if saved_env is None:
+                os.environ.pop(inception.WEIGHTS_ENV, None)
+            else:
+                os.environ[inception.WEIGHTS_ENV] = saved_env
+        val_s = time.perf_counter() - t0
+        in_launches = fused_instance_norm.launches
+        log_lines = (Path(tmp) / "inception" / "log").read_text().splitlines()
+        record = json.loads((Path(tmp) / "inception" / "metrics.jsonl").read_text()
+                            .splitlines()[-1])
+        generated = np.stack([np.asarray(Image.open(p)) for p in sorted(
+            (Path(tmp) / "inception" / "val").glob("*.png"),
+            key=lambda p: int(p.stem))])[..., None]
+    check(len(log_lines) == 1 and re.fullmatch(
+        r"Step 0 \| fid: \S+, kid: \S+ \[inception_v3_pool3\]", log_lines[0]) is not None,
+        f"the validation log {log_lines}")
+    check(record["fid_extractor"] == "inception_v3_pool3"
+          and np.isfinite([record["fid"], record["kid"]]).all(),
+          f"metrics.jsonl's record {record}")
+    check(in_launches == 9 * (I_EVAL_IMAGES // batch),
+          f"{in_launches} instance-norm launches for {I_EVAL_IMAGES // batch} encodes")
+    check(generated.shape == (I_EVAL_IMAGES, h, w, 1), f"validation images {generated.shape}")
+
+    model = inception_v3.from_torchvision_state(state_dict)
+    card = inception_v3.make_extractor(model, batch=I_BATCH, device="cuda")
+    cpu = inception_v3.make_extractor(
+        inception_v3.from_torchvision_state(state_dict), batch=I_BATCH, device="cpu")
+    got = card(generated[:I_CARD_CPU_IMAGES])
+    want = cpu(generated[:I_CARD_CPU_IMAGES])
+    scale = float(np.abs(want).mean())
+    err = float(np.abs(got - want).max())
+    check(got.shape == (I_CARD_CPU_IMAGES, 2048) and np.isfinite(got).all(),
+          f"features {got.shape}")
+    check(np.allclose(got, want, rtol=INCEPTION_CARD_CPU_TOL,
+                      atol=INCEPTION_CARD_CPU_TOL * scale),
+          f"Inception on the card against the CPU: max |delta| {err:.3e}, mean |feature| "
+          f"{scale:.3e}")
+    rate_images = np.concatenate([generated, reals])[:I_RATE_IMAGES]
+    card(rate_images)  # warm: cuDNN's algorithm choice at batch 32
+    t0 = time.perf_counter()
+    card(rate_images)
+    rate = I_RATE_IMAGES / (time.perf_counter() - t0)
+    x = torch.from_numpy(generated[:I_BATCH]).cuda().permute(0, 3, 1, 2).float()
+    resize_ms = _cuda_ms(torch, lambda: pil_bicubic_resize(x, 299, 299), 20)
+    with profiling.trace(ROOT / "chiprun_out" / "inception_trace", device="cuda") as path:
+        card(generated[:I_BATCH])
+    events = json.loads(path.read_text())["traceEvents"]
+    device_events = [e for e in events if e.get("cat") == "kernel"]
+    check(path.is_file() and device_events, f"the trace {path} holds no device kernels")
+    out = {
+        "val_checkpoint_s": val_s, "fid": fid_score, "kid": kid_score,
+        "extractor_load_s": sum(times["default_extractor"]),
+        "fid_ms": 1e3 * sum(times["frechet_distance"]),
+        "kid_ms": 1e3 * sum(times["kernel_distance"]),
+        "images_scored": {"generated": I_EVAL_IMAGES, "reals": I_EVAL_IMAGES},
+        "in_launches": in_launches, "card_vs_cpu_max_abs": err,
+        "card_vs_cpu_max_rel": float(np.max(np.abs(got - want) / (np.abs(want) + scale))),
+        "mean_abs_feature": scale, "images_per_s_batch32": rate,
+        "resize_ms_batch32": resize_ms, "trace": str(path.relative_to(ROOT)),
+        "trace_kernels": len(device_events), "phase_s": time.perf_counter() - t_phase,
+    }
+    log(f"phase 20: evaluation at {CONFIG.name} under require_inception_fid, "
+        f"{I_EVAL_IMAGES} generated against {I_EVAL_IMAGES} reals: {log_lines[0]} "
+        f"({val_s:.2f} s; weights read and folded {out['extractor_load_s']:.2f} s, FID "
+        f"{out['fid_ms']:.1f} ms, KID {out['kid_ms']:.1f} ms; {in_launches} IN launches)")
+    log(f"  the extractor at batch {I_BATCH}: {rate:.1f} images/s over {I_RATE_IMAGES} images "
+        f"({h}x{w}, 1 channel); the resize of {I_BATCH} images to 299x299 {resize_ms:.4f} ms; "
+        f"card against CPU on {I_CARD_CPU_IMAGES} images: max |delta| {err:.3e} (mean |feature| "
+        f"{scale:.3e}, limit rtol {INCEPTION_CARD_CPU_TOL} atol {INCEPTION_CARD_CPU_TOL} x mean)")
+    log(f"  trace of one extractor call: {out['trace']} ({len(device_events)} device kernels)")
+    log("phase 20 ok")
+    return out
+
+
 # ---------------------------------------------------------------- phase 18
 
 
@@ -3984,6 +4160,8 @@ def main() -> int:
     report["int8_serve"] = phase_int8_serve(torch, config, source)
     torch.cuda.empty_cache()
     report["split_norm"] = phase_split_norm(torch)
+    torch.cuda.empty_cache()
+    report["inception"] = phase_inception(torch)
 
     fused = report["fused_step"]["launches"]
     enc = report["kernels"]["per_encode"]["float32_b1"]
@@ -4003,7 +4181,8 @@ def main() -> int:
                    "Trainer (phase 14)": trained["instance_norm"],
                    "production Trainer (phase 15)": prod["instance_norm"],
                    **{k: v["instance_norm"] for k, v in s7.items()},
-                   "int8 serving (phase 18b)": report["int8_serve"]["launches"]["instance_norm"]}
+                   "int8 serving (phase 18b)": report["int8_serve"]["launches"]["instance_norm"],
+                   "evaluation with Inception (phase 20)": report["inception"]["in_launches"]}
     kernels = [{
         "name": "instance_norm",
         "route": "cuda",

@@ -60,7 +60,11 @@ the end writes the image grids, the validation FID/KID and a checkpoint.
   evaluation. A SIGTERM to any rank stops every rank at the same group
   boundary; the logged means are global, so a non-finite one raises on
   every rank. The checkpoint schema is one card's: a checkpoint of four
-  ranks resumes on one card, and the reverse.
+  ranks resumes on one card, and the reverse. The ranks may span
+  several nodes (torchrun, ``parallel/distributed.py``); on resume each
+  reads the checkpoint itself, and when the ranks restored different
+  steps (a node that does not see the same ``checkpoint_directory``)
+  every rank raises before the first step.
 
 - **Spatial parallelism** (``tpu.spatial_parallel`` = S > 1; the
   group's ``spatial`` subgroup): the ``data_parallel x S`` ranks form
@@ -292,8 +296,23 @@ class Trainer:
                 # each step took one D and one G batch of each domain
                 self.shoeprint_iter.skip(2 * self.start_step)
                 self.shoemark_iter.skip(2 * self.start_step)
+            if group is not None:
+                self._check_ranks_resume_alike(group)
         replicate(group, self.state)
         self._copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+
+    def _check_ranks_resume_alike(self, group) -> None:
+        """Raise on every rank unless every rank restored the same step:
+        a rank that saw no checkpoint (or an older one) would run another
+        number of steps, and the collectives would hang."""
+        steps = group.gather_int(self.start_step)
+        if min(steps) != max(steps):
+            behind = {r: s for r, s in enumerate(steps) if s != max(steps)}
+            msg = (f"ranks {sorted(behind)} resumed from steps {sorted(set(behind.values()))} "
+                   f"(0: no checkpoint) where others resumed from step {max(steps)}, under "
+                   f"{self.ckpt_mgr.directory}: every node must see the same "
+                   "training.checkpoint_directory (a shared file system)")
+            raise RuntimeError(msg)
 
     # ------------------------------------------------------------ data
 

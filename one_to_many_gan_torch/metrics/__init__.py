@@ -1,4 +1,5 @@
-"""Evaluation metrics: FID / KID with a pluggable feature extractor."""
+"""Evaluation metrics: FID / KID with a pluggable feature extractor
+(InceptionV3 pool3 where its weights are found, else a random projection)."""
 
 from one_to_many_gan_torch.metrics.fid import (
     InceptionUnavailableError,
@@ -10,6 +11,7 @@ from one_to_many_gan_torch.metrics.fid import (
     kernel_distance,
     random_projection_extractor,
 )
+from one_to_many_gan_torch.metrics.inception import try_load_inception
 
 __all__ = [
     "InceptionUnavailableError",
@@ -20,4 +22,5 @@ __all__ = [
     "frechet_distance",
     "kernel_distance",
     "random_projection_extractor",
+    "try_load_inception",
 ]

@@ -7,12 +7,13 @@ Fréchet distance through a symmetric matrix square root (retried with
 unbiased cubic-kernel MMD^2 averaged over subsets (clean-fid's protocol:
 subsets of 1000, 100 of them), all numpy and scipy.
 
-Feature extraction: the canonical extractor is InceptionV3's pool3,
-whose weights are not in the repository and which the port does not
-have yet (ROADMAP.md). The extractor here is the JAX package's
-``random_projection_v1``: three frozen random stride-2 convs with
-LeakyReLU(0.2), global mean and max pooling and a random projection to
-256 features, on images resized bilinearly to 64x64. Its weights were
+Feature extraction: the canonical extractor is InceptionV3's pool3
+(``metrics/inception_v3.py``), used whenever its weights are found
+(``metrics/inception.py``); the repository ships none. Without them the
+extractor is the JAX package's ``random_projection_v1``: three frozen
+random stride-2 convs with LeakyReLU(0.2), global mean and max pooling
+and a random projection to 256 features, on images resized bilinearly
+to 64x64. Its weights were
 drawn by JAX from one fixed key; torch cannot repeat those draws, so the
 port reads them from ``random_projection_v1.npz`` beside this module
 (written by ``scripts/export_fid_projection.py``). The same images then
@@ -31,6 +32,7 @@ import numpy as np
 import scipy.linalg
 
 PROJECTION_NAME = "random_projection_v1"
+INCEPTION_NAME = "inception_v3_pool3"
 PROJECTION_WEIGHTS = Path(__file__).with_name(f"{PROJECTION_NAME}.npz")
 
 
@@ -169,15 +171,22 @@ class InceptionUnavailableError(RuntimeError):
 def default_extractor(
     *, require_inception: bool = False, device=None
 ) -> tuple[FeatureFn, str]:
-    """The best extractor the port has, and its name. The port has no
-    InceptionV3 yet, so this is ``random_projection_v1`` on ``device``
-    (None: ``cuda``), or ``InceptionUnavailableError`` under
-    ``require_inception``."""
+    """The best extractor there is, on ``device`` (None: ``cuda``), and its
+    name: InceptionV3's pool3 (``inception_v3_pool3``) when its weights are
+    found (``metrics/inception.py``), else ``random_projection_v1``, or,
+    under ``require_inception`` (``tpu.require_inception_fid``),
+    ``InceptionUnavailableError``."""
+    from one_to_many_gan_torch.metrics.inception import WEIGHTS_ENV, try_load_inception
+
+    inception = try_load_inception(device)
+    if inception is not None:
+        return inception, INCEPTION_NAME
     if require_inception:
         msg = (
-            "tpu.require_inception_fid=true but the PyTorch port has no InceptionV3 "
-            "extractor yet (see ROADMAP.md); refusing to log a non-comparable "
-            "random-projection FID"
+            "tpu.require_inception_fid=true but no InceptionV3 weights are available "
+            f"(set {WEIGHTS_ENV} to torchvision-format weights, or place them in "
+            "~/.cache/torch/hub/checkpoints: see metrics/inception.py); refusing to log "
+            "a non-comparable random-projection FID"
         )
         raise InceptionUnavailableError(msg)
     return random_projection_extractor(device), PROJECTION_NAME

@@ -9,6 +9,7 @@ from one_to_many_gan_torch.ops.resample import (
     bilinear_resize,
     blur3,
     downsample2x,
+    pil_bicubic_resize,
     upsample2x,
 )
 
@@ -23,6 +24,7 @@ __all__ = [
     "instance_norm",
     "int8_conv",
     "l2_normalize",
+    "pil_bicubic_resize",
     "quantize_activations",
     "quantize_weight",
     "upsample2x",

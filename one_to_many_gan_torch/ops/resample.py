@@ -19,7 +19,8 @@ calls with the JAX package's taps:
   x[k-1], x[k], x[k+1]), here one depthwise ``conv_transpose2d``.
 
 ``bilinear_resize`` (the odd-size fallback) applies dense per-axis
-interpolation matrices.
+interpolation matrices; ``pil_bicubic_resize`` (the FID extractor's
+resize) does the same with PIL's antialiased bicubic weights.
 
 The FIRs' depthwise convs (``_fir``) run inside a pair of
 ``autograd.Function``s, each the other's backward (the conv and its
@@ -170,6 +171,48 @@ def bilinear_resize(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     if w != out_w:
         x = x @ _matrix(w, out_w, x).T
     return x
+
+
+def _pil_bicubic_kernel(t: np.ndarray, a: float = -0.5) -> np.ndarray:
+    """PIL's bicubic (Keys, a = -0.5), support 2."""
+    t = np.abs(t)
+    return np.where(
+        t < 1.0,
+        ((a + 2.0) * t - (a + 3.0)) * t * t + 1.0,
+        np.where(t < 2.0, a * (((t - 5.0) * t + 8.0) * t - 4.0), 0.0),
+    )
+
+
+@functools.lru_cache(maxsize=16)
+def _pil_bicubic_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """Dense [out, in] float32 matrix of PIL's ``Image.resize`` with
+    ``Resampling.BICUBIC``, antialiasing included: on a reduction the
+    filter's support widens by the ratio, and each row's weights are
+    normalised to sum to 1 (PIL's ``precompute_coeffs``)."""
+    a = np.zeros((out_size, in_size), dtype=np.float64)
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    for i in range(out_size):
+        center = (i + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size)
+        taps = np.arange(xmin, xmax)
+        w = _pil_bicubic_kernel((taps - center + 0.5) / filterscale)
+        a[i, xmin:xmax] = w / w.sum()
+    return a.astype(np.float32)
+
+
+def pil_bicubic_resize(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """PIL-exact antialiased bicubic resize of NCHW images (clean-fid's
+    299x299 evaluation resize, on the 0..255 scale): one matmul per axis
+    by the matrices above, on ``x``'s device and in its dtype."""
+    h, w = x.shape[2], x.shape[3]
+    if (h, w) == (out_h, out_w):
+        return x
+    mh = torch.from_numpy(_pil_bicubic_matrix(h, out_h)).to(x.device, x.dtype)
+    mw = torch.from_numpy(_pil_bicubic_matrix(w, out_w)).to(x.device, x.dtype)
+    return torch.matmul(torch.matmul(mh, x), mw.T)
 
 
 def _fir_band(x: torch.Tensor, h: int, taps: tuple[float, ...],

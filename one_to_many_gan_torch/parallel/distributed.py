@@ -16,9 +16,16 @@ across hosts; here each data-parallel rank is a process with one card
   raises ``RankFailed`` with that rank's exit code. A SIGTERM to the
   launcher is passed on to every rank.
 - ``data_parallel_ranks`` is the number of ranks a config runs on a
-  device type, ``data_parallel x spatial_parallel``: on ``cuda``
-  ``config.resolve_data_parallel`` over the visible cards; on the CPU
+  device type, ``data_parallel x spatial_parallel``: under torchrun
+  ``config.resolve_data_parallel`` over ``WORLD_SIZE``, the ranks of
+  every node; else on ``cuda`` over the visible cards, and on the CPU
   ``data_parallel`` gloo ranks to a spatial column, -1 meaning one.
+
+Several nodes: torchrun on each (``--nnodes``, ``--node_rank``, one
+``--master_addr``) numbers the ranks node by node; ``LOCAL_RANK`` picks
+the card. Every node must see the same ``training.checkpoint_directory``
+(a shared file system): each rank reads its checkpoint there on resume,
+and the Trainer refuses to start when the ranks found different steps.
 """
 
 from __future__ import annotations
@@ -59,11 +66,23 @@ def torchrun_present() -> bool:
 
 
 def data_parallel_ranks(config: Config, device_type: str) -> int:
-    """The ranks ``config`` trains on, ``data_parallel x spatial_parallel``:
-    on ``cuda`` ``resolve_data_parallel`` over ``torch.cuda.device_count()``
-    cards (more than there are raise); on ``cpu`` ``data_parallel`` gloo
-    processes to each of ``spatial_parallel`` columns, -1 meaning one."""
+    """The ranks ``config`` trains on, ``data_parallel x spatial_parallel``.
+    Under torchrun: ``resolve_data_parallel`` over ``WORLD_SIZE``, the
+    ranks of every node (-1 is ``WORLD_SIZE / spatial_parallel``); on
+    ``cuda`` a node that starts more ranks (``LOCAL_WORLD_SIZE``) than it
+    has cards raises. Else on ``cuda`` ``resolve_data_parallel`` over
+    ``torch.cuda.device_count()`` cards (more than there are raise); on
+    ``cpu`` ``data_parallel`` gloo processes to each of
+    ``spatial_parallel`` columns, -1 meaning one."""
     sp = config["tpu"]["spatial_parallel"]
+    if torchrun_present():
+        world = int(os.environ["WORLD_SIZE"])
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+        if device_type == "cuda" and local > torch.cuda.device_count():
+            msg = (f"torchrun started {local} ranks on this node, which has "
+                   f"{torch.cuda.device_count()} visible cards")
+            raise RuntimeError(msg)
+        return resolve_data_parallel(config, world) * sp
     if device_type == "cuda":
         return resolve_data_parallel(config, torch.cuda.device_count()) * sp
     dp = config["tpu"]["data_parallel"]

@@ -28,17 +28,27 @@ batch and, with ``S`` > 1, band ``s`` of the rows of each image
 - ``replicate``: rank 0's state broadcast to every rank once at start
   (``replicate``'s counterpart; JAX assumes the copies equal, the
   broadcast makes them so);
-- ``any`` / ``barrier``: host-side agreement on a flag (SIGTERM) and a
+- ``any`` / ``gather_int`` / ``barrier``: host-side agreement on a flag
+  (SIGTERM), every rank's view of a number (the resumed step) and a
   meeting point (rank 0 evaluating), on a gloo group of their own, so
-  that neither waits for the card.
+  that none waits for the card.
 
 With ``S`` = 1 the group is bitwise the data-parallel group it was
 before the spatial axis: no subgroup is made.
+
+Across nodes, torchrun numbers the ranks node by node, so a spatial
+subgroup (``S`` consecutive ranks), whose halo exchanges are many and
+small, stays within one node whenever ``S`` divides the ranks of a node;
+otherwise ``make_group`` warns once, naming the subgroups that cross.
+Each data row's rows of the batch are read by its own ranks, so the data
+needs nothing per node.
 """
 
 from __future__ import annotations
 
 import datetime
+import os
+import warnings
 
 import torch
 import torch.distributed as dist
@@ -153,6 +163,12 @@ class DataParallel:
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.control)
         return bool(t.item())
 
+    def gather_int(self, value: int) -> list[int]:
+        """Every rank's ``value``, in rank order (host side)."""
+        parts = [torch.zeros(1, dtype=torch.int64) for _ in range(self.world)]
+        dist.all_gather(parts, torch.tensor([value], dtype=torch.int64), group=self.control)
+        return [int(p.item()) for p in parts]
+
     def barrier(self) -> None:
         """Wait for every rank (host side, the control group's timeout)."""
         dist.barrier(group=self.control)
@@ -161,6 +177,26 @@ class DataParallel:
         if self.control is not None:
             dist.destroy_process_group(self.control)
             self.control = None
+
+
+def crossing_subgroups(world: int, spatial: int, local_world: int) -> list[list[int]]:
+    """The spatial subgroups (ranks ``d * S .. d * S + S - 1``) that span
+    more than one node when torchrun numbers the ranks node by node,
+    ``local_world`` to a node: none when ``spatial`` divides
+    ``local_world``."""
+    return [list(range(d, d + spatial)) for d in range(0, world, spatial)
+            if d // local_world != (d + spatial - 1) // local_world]
+
+
+def _warn_crossing_nodes(world: int, spatial: int) -> None:
+    """Under torchrun, one warning naming the spatial subgroups whose halo
+    exchanges cross nodes (the layout still runs, as JAX's mesh does)."""
+    local = os.environ.get("LOCAL_WORLD_SIZE")
+    crossing = crossing_subgroups(world, spatial, int(local)) if local else []
+    if crossing:
+        warnings.warn(f"tpu.spatial_parallel={spatial} does not divide the {local} ranks of a "
+                      f"node: the spatial subgroups {crossing} span nodes, and their halo "
+                      "exchanges cross the network", stacklevel=3)
 
 
 def make_group(device: torch.device, timeout: datetime.timedelta | None = None,
@@ -182,6 +218,8 @@ def make_group(device: torch.device, timeout: datetime.timedelta | None = None,
     if world % spatial:
         msg = f"tpu.spatial_parallel={spatial} must divide the {world} ranks"
         raise ValueError(msg)
+    if rank == 0:
+        _warn_crossing_nodes(world, spatial)
     data_pgs = [dist.new_group(list(range(s, world, spatial)), **kwargs) for s in range(spatial)]
     spatial_pgs = [dist.new_group(list(range(d, d + spatial)), **kwargs)
                    for d in range(0, world, spatial)]

@@ -37,9 +37,15 @@ rank per card, each image's rows split over the ``spatial_parallel``
 ranks of its data row (``parallel/halo.py``): the
 CLI builds the CUDA kernels once, then starts the ranks itself (one
 process each, NCCL over a free local port) and waits for them, or, under
-torchrun, this process is one of them. With ``--device cpu`` the ranks
+torchrun, this process is one of them: torchrun's ``WORLD_SIZE``, the
+ranks of all its nodes, must be what the config resolves to against it
+(-1: ``WORLD_SIZE / spatial_parallel``), e.g. on each of two nodes of
+four cards ``torchrun --nnodes 2 --node_rank K --nproc_per_node 4
+--master_addr HOST --master_port PORT -m one_to_many_gan_torch.train
+config.toml`` with ``data_parallel = 8`` (or -1); every node must see
+the same ``checkpoint_directory``. With ``--device cpu`` the ranks
 are gloo processes (``data_parallel x spatial_parallel`` of them; -1 is
-one data row). A rank's
+one data row; under torchrun ``WORLD_SIZE``'s). A rank's
 failure ends every rank, and the CLI exits with its code (42 for
 ``TrainingDiverged``). Rank 0 prints; ``--synthetic-steps`` then times
 each step of the data-parallel step on its card.
@@ -157,17 +163,17 @@ def main(argv: list[str] | None = None) -> None:
         set_cublas_workspace()  # before anything touches CUDA; the ranks inherit it
     device_type = select_device(args.device).type
     ranks = distributed.data_parallel_ranks(config, device_type)
+    torchrun = distributed.torchrun_present()
+    if torchrun and int(os.environ["WORLD_SIZE"]) != ranks:
+        msg = (f"torchrun started {os.environ['WORLD_SIZE']} ranks over its nodes; "
+               f"tpu.data_parallel x tpu.spatial_parallel resolves to {ranks}")
+        raise ValueError(msg)
     if ranks == 1:
         _run(config, args)
         return
     timeout_s = distributed.barrier_timeout_s(config)
     spatial = config["tpu"]["spatial_parallel"]
-    if distributed.torchrun_present():
-        world = int(os.environ["WORLD_SIZE"])
-        if world != ranks:
-            msg = (f"torchrun started {world} ranks; tpu.data_parallel x "
-                   f"tpu.spatial_parallel resolves to {ranks}")
-            raise ValueError(msg)
+    if torchrun:
         group = distributed.ensure_initialized(device_type, timeout_s=timeout_s,
                                                spatial=spatial)
         _run(config, args, group)

@@ -1,7 +1,7 @@
 """Drive the port's data and spatial parallelism on several NVIDIA cards
 of one host.
 
-    python3 scripts/multi_card_smoke.py [--cards N] [--checks abcdefg]
+    python3 scripts/multi_card_smoke.py [--cards N] [--checks abcdefgh]
 
 Run it from the repository root on a host with N CUDA cards (default 4;
 H100s: the kernels are built for sm_90a). It builds the CUDA kernels once
@@ -64,7 +64,18 @@ H100s: the kernels are built for sm_90a). It builds the CUDA kernels once
     profiled step), the instance norms' all-gathers (count, bytes, timed
     alone), the idle share per card; then its ``Trainer`` through the CLI
     under deterministic kernels on 512x512 folders: 8 steps, a resume to
-    16, and 16 uninterrupted steps, the two ``16.tar`` bitwise equal.
+    16, and 16 uninterrupted steps, the two ``16.tar`` bitwise equal;
+(h) a training group that spans nodes: two ``torchrun --nnodes 2`` launches
+    on this host, each a "node" of N/2 cards (``CUDA_VISIBLE_DEVICES``),
+    train that config at data N/2 x spatial 2 (each spatial subgroup within
+    a node) under deterministic kernels, 4 steps and a resume to 8, once
+    over NCCL's default transport and once over sockets alone
+    (``NCCL_P2P_DISABLE=1 NCCL_SHM_DISABLE=1``, as between two hosts, with
+    the all-reduce's algorithm, protocol and channels pinned on both sides:
+    ``H_ONE_ORDER``); each ``8.tar`` against one single-node torchrun of N
+    ranks for the same 8 steps, bitwise or within (b)'s limits (which one
+    is printed); NCCL's transports from its INFO lines; images/s of fused
+    steps on noise for one node, two nodes and two nodes over sockets.
 
 ``--checks`` runs only the lettered checks it names (all by default).
 ``nvidia-smi topo -m`` and every card's name and power limit are printed.
@@ -82,6 +93,8 @@ import gc
 import hashlib
 import io
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -126,6 +139,26 @@ SERVE_TOL = 1e-5
 # limit was 2e-2) and MIN_HELD_PINNED (chip_smoke.held_mask; was 0.5).
 PINNED_GRAD_RTOL = 4e-4
 MIN_HELD_PINNED = 0.95
+# (h): two torchrun "nodes" of N/2 cards on this host, the production config
+# at data N/2 x spatial 2 (each spatial subgroup within a node) under
+# deterministic kernels: H_HALF steps, then a resume to H_STEPS, against one
+# single-node torchrun of N ranks for H_STEPS uninterrupted; over NCCL's
+# default transport, and over sockets alone, as between two hosts.
+H_HALF, H_STEPS = 4, 8
+H_SOCKETS = {"NCCL_P2P_DISABLE": "1", "NCCL_SHM_DISABLE": "1"}
+# NCCL picks its all-reduce's algorithm, protocol and channels from the
+# transport (24 ring channels over NVLink, 2 over sockets: PR 14's first
+# (h) run, PERF.md section 6), so over sockets the gradients' sums take
+# another order and, 8 steps of Adam later, the checkpoints part (0.6629 of
+# the elements held within (b)'s limits). The sockets comparison pins them
+# on both sides, so that the sums take one order whatever the transport.
+H_ONE_ORDER = {"NCCL_ALGO": "Ring", "NCCL_PROTO": "Simple", "NCCL_MIN_NCHANNELS": "2",
+               "NCCL_MAX_NCHANNELS": "2"}
+# images/s: fused steps on noise (--synthetic-steps, rank 0's synchronised
+# step ms), NCCL as a user gets it; the median of steps 1.. (step 0, an R1
+# and path step, warms the card).
+H_TIMED_STEPS = 6
+H_LAUNCH_TIMEOUT_S = 900
 # (f) and (g)'s ranks: a collective that waits longer than this raises
 # (the default, 1800 s, leaves room for an evaluation these ranks never run).
 COLLECTIVE_TIMEOUT_S = 600.0
@@ -1043,18 +1076,201 @@ def serve_data_parallel(torch, cards: int) -> dict:
 # ------------------------------------------------------------------- main
 
 
+# -------------------------------------------------------------------- (h)
+
+
+def _torchrun(config: Path, nnodes: int, node_rank: int, nproc: int, port: int,
+              cards: str, env: dict, out: Path, extra: tuple = ()) -> subprocess.Popen:
+    """One torchrun "node" of ``nproc`` ranks on ``cards`` (its
+    ``CUDA_VISIBLE_DEVICES``) running the training CLI on ``config`` (and
+    ``extra`` arguments), NCCL's INFO lines on, its output to ``out``."""
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": cards, "NCCL_DEBUG": "INFO", **env}
+    with out.open("w") as f:
+        return subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--nnodes", str(nnodes),
+             "--node_rank", str(node_rank), "--nproc_per_node", str(nproc),
+             "--master_addr", "127.0.0.1", "--master_port", str(port),
+             "-m", "one_to_many_gan_torch.train", str(config), *extra],
+            cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT, text=True)
+
+
+def _launch(config: Path, nodes: list[str], env: dict, out_dir: Path, label: str,
+            extra: tuple = ()) -> dict:
+    """torchrun on each of ``nodes`` (their cards, e.g. ["0,1", "2,3"]) at
+    once; -> the wall seconds and every node's output (rank 0's first)."""
+    from one_to_many_gan_torch.parallel.distributed import _free_port
+
+    port = _free_port()
+    per_node = len(nodes[0].split(","))
+    outs = [out_dir / f"{label}_node{k}.log" for k in range(len(nodes))]
+    t0 = time.perf_counter()
+    procs = [_torchrun(config, len(nodes), k, per_node, port, cards, env, outs[k], extra)
+             for k, cards in enumerate(nodes)]
+    try:
+        codes = [p.wait(timeout=H_LAUNCH_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    texts = [o.read_text() for o in outs]
+    cs.check(codes == [0] * len(nodes), f"{label}: torchrun exited {codes}:\n"
+             + "\n".join(t[-3000:] for t in texts))
+    return {"wall_s": wall, "texts": texts}
+
+
+def _transports(texts: list[str]) -> dict:
+    """NCCL's channel connections by transport, from its INFO lines
+    (``... via P2P/CUMEM``, ``via SHM/direct``, ``via NET/Socket/0``)."""
+    out: dict = {}
+    for text in texts:
+        for m in re.finditer(r" via (\S+)", text):
+            kind = m.group(1).split("/")[0] + ("/" + m.group(1).split("/")[1]
+                                                if m.group(1).startswith("NET") else "")
+            out[kind] = out.get(kind, 0) + 1
+    return out
+
+
+def _closeness(torch, a, b) -> dict:
+    """Two checkpoints' floating leaves against (b)'s limits: each
+    element within ``PINNED_GRAD_RTOL`` of its leaf's largest entry (the
+    share held, at least ``MIN_HELD_PINNED``), the worst leaf's largest
+    difference over its largest entry; every other leaf equal."""
+    held = total = 0
+    worst = (0.0, "")
+
+    def walk(x, y, where):
+        nonlocal held, total, worst
+        if torch.is_tensor(x):
+            if not x.is_floating_point():
+                cs.check(torch.equal(x, y), f"{where} differs")
+                return
+            x, y = x.double(), y.double()
+            scale = float(y.abs().max()) or 1.0
+            d = (x - y).abs()
+            held += int((d <= PINNED_GRAD_RTOL * scale).sum())
+            total += d.numel()
+            worst = max(worst, (float(d.max()) / scale, where))
+        elif isinstance(x, dict):
+            for k in x:
+                walk(x[k], y[k], f"{where}.{k}")
+        elif isinstance(x, list):
+            for i, (u, v) in enumerate(zip(x, y, strict=True)):
+                walk(u, v, f"{where}[{i}]")
+        else:
+            cs.check(x == y, f"{where}: {x} against {y}")
+
+    walk(a, b, "")
+    return {"held_share": held / total, "worst_rel": worst[0], "worst_leaf": worst[1]}
+
+
+def two_nodes(torch, cards: int) -> dict:
+    """(h): two torchrun nodes of N/2 cards on this host against one node
+    of N, the production config at data N/2 x spatial 2, over NCCL's
+    default transport and over sockets alone."""
+    from one_to_many_gan_torch.config import load_config
+    from one_to_many_gan_torch.data import write_synthetic_dataset_dirs
+    from one_to_many_gan_torch.presets import write_card_config
+
+    cs.check(cards % 2 == 0 and cards >= 4, f"(h) needs an even number of cards >= 4, has {cards}")
+    all_cards = [",".join(str(c) for c in range(cards))]
+    halves = [",".join(str(c) for c in range(cards // 2)),
+              ",".join(str(c) for c in range(cards // 2, cards))]
+    out_dir = ROOT / "chiprun_out" / "multi_card_h"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    out: dict = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "chiprun_out") as tmp:
+        root = Path(tmp)
+        for domain, seed in (("prints", 0), ("marks", 9)):
+            write_synthetic_dataset_dirs(root / domain, n_train=cs.T_TRAIN_IMAGES,
+                                         n_test=cs.T_TEST_IMAGES,
+                                         image_size=(cs.P_SIZE, cs.P_SIZE), seed=seed)
+
+        def config(run: str, steps: int) -> Path:
+            path = root / f"{run}_{steps}.toml"
+            write_card_config(
+                cs.PROD_CONFIG, path, cards=cards, spatial=True, native_loader=False,
+                deterministic_cuda_kernels=True, shoeprint_data_dir=str(root / "prints"),
+                shoemark_data_dir=str(root / "marks"), checkpoint_directory=str(root),
+                training_run=run, training_steps=steps, log_interval=H_HALF,
+                checkpoint_interval=H_HALF, n_evaluation_images=cs.T_EVAL_IMAGES)
+            return path
+
+        def ckpt(run: str):
+            return cs._load_ckpt(torch, root / run / "models" / f"{H_STEPS}.tar")
+
+        _free(torch)
+        b_global = load_config(config("one", H_STEPS))["training"]["batch_size"]
+        for name, (one_env, two_env) in {"default": ({}, {}),
+                                         "sockets": (H_ONE_ORDER, {**H_SOCKETS, **H_ONE_ORDER})
+                                         }.items():
+            one = _launch(config(f"one_{name}", H_STEPS), all_cards, one_env, out_dir,
+                          f"one_node_{name}")
+            first = _launch(config(f"two_{name}", H_HALF), halves, two_env, out_dir,
+                            f"two_{name}_first")
+            second = _launch(config(f"two_{name}", H_STEPS), halves, two_env, out_dir,
+                             f"two_{name}_resume")
+            cs.check(f"Resumed from checkpoint at step {H_HALF}" in second["texts"][0],
+                     f"two nodes, {name}: the second launch did not resume from step {H_HALF}")
+            transports = _transports(first["texts"] + second["texts"])
+            if name == "sockets":
+                cs.check("NET/Socket" in transports and not {"P2P", "SHM"} & set(transports),
+                         f"two nodes, {name}: NCCL connected over {transports}, not sockets alone")
+            diffs, n_tensors, n_elems = cs._ckpt_differences(torch, ckpt(f"two_{name}"),
+                                                             ckpt(f"one_{name}"))
+            close = None if not diffs else _closeness(torch, ckpt(f"two_{name}"),
+                                                      ckpt(f"one_{name}"))
+            cs.check(close is None or close["held_share"] >= MIN_HELD_PINNED,
+                     f"two nodes, {name}: {H_STEPS}.tar held {close and close['held_share']} of "
+                     f"the one node's within {PINNED_GRAD_RTOL} of each leaf's largest entry")
+            out[name] = {"env_one_node": one_env, "env_two_nodes": two_env,
+                         "one_node_s": one["wall_s"], "first_s": first["wall_s"],
+                         "resume_s": second["wall_s"], "transports": transports,
+                         "one_node_transports": _transports(one["texts"]),
+                         "bitwise": not diffs, "tensors_compared": n_tensors,
+                         "elements_compared": n_elems, "differing": diffs[:20],
+                         "closeness": close}
+            held = ("bitwise" if not diffs else
+                    f"not bitwise ({len(diffs)} leaves differ); {close['held_share']:.6f} held "
+                    f"within {PINNED_GRAD_RTOL} of each leaf's largest entry, worst "
+                    f"{close['worst_rel']:.3e} at {close['worst_leaf']}")
+            log(f"(h) two torchrun nodes {halves}, NCCL {name} {two_env or ''}, transports "
+                f"{transports}: {H_HALF} steps in {first['wall_s']:.1f} s, the resume to "
+                f"{H_STEPS} in {second['wall_s']:.1f} s; {H_STEPS}.tar against one node's "
+                f"({one['wall_s']:.1f} s, {out[name]['one_node_transports']}): {held}")
+        timed = {}
+        for label, nodes, env in (("one_node", all_cards, {}), ("two_default", halves, {}),
+                                  ("two_sockets", halves, H_SOCKETS)):
+            run = _launch(config("timed", H_STEPS), nodes, env, out_dir, f"{label}_steps",
+                          ("--synthetic-steps", str(H_TIMED_STEPS)))
+            ms = [json.loads(ln)["ms"] for ln in run["texts"][0].splitlines()
+                  if ln.startswith("{")]
+            cs.check(len(ms) == H_TIMED_STEPS, f"{label}: {len(ms)} step lines")
+            timed[label] = {"ms": ms, "images_per_s": b_global * 1e3 / statistics.median(ms[1:])}
+        out["timed"] = timed
+    rate = {k: v["images_per_s"] for k, v in timed.items()}
+    log(f"(h) images/s (global batch {b_global}, deterministic kernels, median of steps "
+        f"1-{H_TIMED_STEPS - 1} on noise): " + ", ".join(f"{k} {v:.2f}" for k, v in rate.items())
+        + f"; two nodes over the default transport {rate['two_default'] / rate['one_node']:.3f}x "
+        f"one node, over sockets {rate['two_sockets'] / rate['one_node']:.3f}x; logs in "
+        f"{out_dir.relative_to(ROOT)}")
+    return out
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--cards", type=int, default=4)
-    ap.add_argument("--checks", default="abcdefg",
+    ap.add_argument("--checks", default="abcdefgh",
                     help="the lettered checks to run, e.g. 'e' (default: all)")
     args = ap.parse_args(argv)
     checks = {"a": ("kernels", kernels_on_cards), "b": ("step", step_against_one_card),
               "c": ("production", production_steps), "d": ("trainer", trainer_resume),
               "e": ("serve", serve_data_parallel),
               "f": ("spatial_step", lambda torch, cards: step_against_one_card(torch, cards, 2)),
-              "g": ("spatial_production", spatial_production)}
+              "g": ("spatial_production", spatial_production),
+              "h": ("two_nodes", two_nodes)}
     unknown = set(args.checks) - set(checks)
     if unknown or not args.checks:
         ap.error(f"--checks takes letters of {''.join(checks)}, got {args.checks!r}")

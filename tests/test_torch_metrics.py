@@ -21,6 +21,17 @@ from one_to_many_gan_tpu.metrics import fid as jax_fid
 FEATURE_TOL = 1e-5
 
 
+@pytest.fixture(autouse=True)
+def no_inception_weights(monkeypatch):
+    """The default extractor here is the projection, whatever InceptionV3
+    weights lie on the machine (``tests/test_torch_inception.py`` gives it
+    weights)."""
+    from one_to_many_gan_torch.metrics import inception
+
+    monkeypatch.delenv(inception.WEIGHTS_ENV, raising=False)
+    monkeypatch.setattr(inception, "_find_weights", lambda: None)
+
+
 def _features(n: int, d: int, seed: int) -> np.ndarray:
     return np.random.default_rng(seed).normal(size=(n, d)).astype(np.float32)
 
