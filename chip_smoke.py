@@ -896,13 +896,20 @@ def phase_bf16(torch, config, source: np.ndarray, card_f32: np.ndarray):
 
 
 def profile_call(torch, fn, label: str, ranges: tuple = (), select=None) -> dict:
-    """Kernels of one ``fn()`` ranked by device time, and the device's busy
-    share of its wall time (``fn`` ends in a host read or a sync); for each
-    ``torch.profiler.record_function`` range named in ``ranges``, the
-    device time of the kernels launched inside it; every kernel whose name
-    ``select`` accepts."""
+    """The device operations of one ``fn()`` (kernels, copies, memsets:
+    the trace's, so the device side of a ``record_function`` range is
+    none) ranked by device time, and the device's busy share of its wall
+    time (``fn`` ends in a host read or a sync): the union of their
+    intervals (``utils.profiling.device_busy_s``), so overlapping
+    operations count once; for each ``torch.profiler.record_function``
+    range named in ``ranges``, the device time of the kernels launched
+    inside it; every operation whose name ``select`` accepts."""
+    import tempfile
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from one_to_many_gan_torch.utils import profiling
 
     fn()
     torch.cuda.synchronize()
@@ -911,23 +918,23 @@ def profile_call(torch, fn, label: str, ranges: tuple = (), select=None) -> dict
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels, in_ranges = [], dict.fromkeys(ranges, 0.0)
+    in_ranges = dict.fromkeys(ranges, 0.0)
     for evt in prof.key_averages():
-        if evt.key in in_ranges:
-            # the host range's kernels; the device-side span of the range is
-            # no kernel and is left out of the busy time
-            if evt.device_type == DeviceType.CPU:
-                us = getattr(evt, "device_time_total", None)
-                in_ranges[evt.key] = (us if us is not None else evt.cuda_time_total) / 1e3
-            continue
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        kernels.append({"name": evt.key, "calls": evt.count, "ms": us / 1e3})
-    kernels.sort(key=lambda k: -k["ms"])
-    busy_ms = sum(k["ms"] for k in kernels)
+        if evt.key in in_ranges and evt.device_type == DeviceType.CPU:
+            us = getattr(evt, "device_time_total", None)
+            in_ranges[evt.key] = (us if us is not None else evt.cuda_time_total) / 1e3
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_profile_") as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = profiling.trace_events(path)
+    by_name: dict[str, dict] = {}
+    for e in events:
+        if e.get("cat") in profiling.DEVICE_CATS:
+            k = by_name.setdefault(e["name"], {"name": e["name"], "calls": 0, "ms": 0.0})
+            k["calls"] += 1
+            k["ms"] += float(e["dur"]) / 1e3
+    kernels = sorted(by_name.values(), key=lambda k: -k["ms"])
+    busy_ms = profiling.device_busy_s(profiling.device_intervals(events)) * 1e3
     check(busy_ms > 0, f"the profiler saw no device time in {label}")
     log(f"profile {label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
         f"({busy_ms / wall_ms:.1%}; idle {1 - busy_ms / wall_ms:.1%}), "

@@ -17,6 +17,7 @@ import torch
 
 from one_to_many_gan_torch.core.state import Models
 from one_to_many_gan_torch.models import StyleRngs, apply_domain
+from one_to_many_gan_torch.utils.profiling import span
 
 
 def _nchw(images: torch.Tensor) -> torch.Tensor:
@@ -47,15 +48,19 @@ def decode_batch_limit(models: Models) -> int:
 
 def decode_in_chunks(gen, latent: torch.Tensor, w: torch.Tensor, limit: int) -> torch.Tensor:
     """``gen.decode(latent, w)`` in as few equal chunks of at most ``limit``
-    images as cover the batch. Each image's decode depends only on its own
-    latent and styles, so the result is the same function."""
+    images as cover the batch, each chunk an ``otm.engine.decode`` span.
+    Each image's decode depends only on its own latent and styles, so the
+    result is the same function."""
     n = latent.shape[0]
     if n <= limit:
-        return gen.decode(latent, w)
+        with span("otm.engine.decode"):
+            return gen.decode(latent, w)
     step = math.ceil(n / math.ceil(n / limit))
-    return torch.cat(
-        [gen.decode(latent[i : i + step], w[:, i : i + step]) for i in range(0, n, step)]
-    )
+    chunks = []
+    for i in range(0, n, step):
+        with span("otm.engine.decode"):
+            chunks.append(gen.decode(latent[i : i + step], w[:, i : i + step]))
+    return torch.cat(chunks)
 
 
 def make_inference_fns(models: Models):
@@ -102,14 +107,18 @@ def make_inference_fns(models: Models):
         data-parallel replica's part.
 
         One encode at B and one decode at B*n (in chunks where B*n exceeds
-        ``decode_batch_limit``). Request ``i``'s output depends only on
-        (images[i], z[i], thetas[i]).
+        ``decode_batch_limit``), each in a span (``otm.engine.encode``,
+        ``.styles``, ``.decode``) whose launches a trace's
+        ``gpu_user_annotation`` covers. Request ``i``'s output depends only
+        on (images[i], z[i], thetas[i]).
         """
         b, n = z.shape[0], z.shape[1]
-        latents = gen.encode(_nchw(images.to(device)))
-        latent_bn = latents.repeat_interleave(n, dim=0)[rows]
-        thetas = torch.as_tensor(thetas, dtype=torch.float32, device=device)
-        w = _styles(z.reshape(b * n, -1)[rows], thetas.repeat_interleave(n)[rows])
+        with span("otm.engine.encode"):
+            latents = gen.encode(_nchw(images.to(device)))
+            latent_bn = latents.repeat_interleave(n, dim=0)[rows]
+        with span("otm.engine.styles"):
+            thetas = torch.as_tensor(thetas, dtype=torch.float32, device=device)
+            w = _styles(z.reshape(b * n, -1)[rows], thetas.repeat_interleave(n)[rows])
         return _nhwc(decode_in_chunks(gen, latent_bn, w, limit))
 
     return translate, one_to_many, many_to_many

@@ -144,6 +144,7 @@ from one_to_many_gan_torch.losses import (
 from one_to_many_gan_torch.models import StyleRngs, apply_domain, draw_style_rngs
 from one_to_many_gan_torch.ops.remat import make_ckpt
 from one_to_many_gan_torch.parallel import halo
+from one_to_many_gan_torch.utils.profiling import span
 
 
 class Batches(NamedTuple):
@@ -632,7 +633,8 @@ def make_train_step(config: Config, models: Models, group=None):
     ``batches`` are this rank's rows of the global batch and ``draws``
     the global step's (``draw_step`` at the config's batch size, the same
     on every rank); the metrics are the global step's. Refuses int8 models
-    (through its phases)."""
+    (through its phases). The phases are the spans ``otm.train.d_phase``
+    and ``otm.train.g_phase``."""
     d_phase = make_d_phase(config, models, group)
     g_phase = make_g_phase(config, models, group)
 
@@ -642,8 +644,11 @@ def make_train_step(config: Config, models: Models, group=None):
         if group is not None:
             draws = shard_draws(draws, group)
         p_used = state.ada.p
-        state, d_metrics = d_phase(state, batches.d_shoeprints, batches.d_shoemarks, draws.d)
-        state, g_metrics = g_phase(state, batches, draws.g, p_used)
+        with span("otm.train.d_phase"):
+            state, d_metrics = d_phase(state, batches.d_shoeprints, batches.d_shoemarks,
+                                       draws.d)
+        with span("otm.train.g_phase"):
+            state, g_metrics = g_phase(state, batches, draws.g, p_used)
         return state, {**d_metrics, **g_metrics}
 
     return train_step

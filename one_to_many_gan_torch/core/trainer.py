@@ -43,9 +43,22 @@ the end writes the image grids, the validation FID/KID and a checkpoint.
   (handled on the main thread only) stops at the next group with that
   same save; a non-finite interval mean raises ``TrainingDiverged`` at
   the log line, before that step's checkpoint (``tpu.halt_on_nonfinite``).
-- **Profile**: at ``tpu.profile_step`` the group holding that step runs
-  under ``torch.profiler``; the trace goes to ``<run>/trace/`` and the
-  device's busy and idle share to ``Trainer.profile``.
+- **Profile**: at ``tpu.profile_step`` the group holding that step, with
+  the log line and checkpoint that end it, runs under
+  ``utils.profiling.trace``; the trace goes to ``<run>/trace/``, and the
+  group's steps' wall time and the device's busy time in it (the union of
+  its operations' intervals inside the ``otm.train.steps`` span) to
+  ``Trainer.profile``.
+- **Spans** (``utils.profiling.span``; a profiler range only while a
+  profiler runs): ``otm.train.steps`` (a group, from its data wait to its
+  last step, the device synchronised at its end when profiled),
+  ``otm.train.data_wait`` (the group's batches taken from the producer, or
+  made), ``otm.train.h2d`` (their copy to the card), ``otm.train.d_phase``
+  and ``otm.train.g_phase`` (``core/train_step.py``),
+  ``otm.train.exchange`` (each optimiser's all-reduce,
+  ``parallel/mesh.py``), ``otm.train.log`` and
+  ``otm.train.checkpoint.image`` / ``.val`` / ``.save``, whose last
+  durations are ``Trainer.timings``.
 
 - **Data parallelism** (a ``group``, ``parallel.DataParallel``, of
   ``tpu.data_parallel`` ranks, one card each): every rank builds the
@@ -80,6 +93,7 @@ the end writes the image grids, the validation FID/KID and a checkpoint.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import queue
@@ -109,7 +123,8 @@ from one_to_many_gan_torch.migrate import (
     to_reference_checkpoint,
 )
 from one_to_many_gan_torch.parallel import distributed, replicate
-from one_to_many_gan_torch.utils import tensorboard
+from one_to_many_gan_torch.utils import profiling, tensorboard
+from one_to_many_gan_torch.utils.profiling import SpanStats, span
 
 # Checkpoint draws are seeded from (random_seed, CHECKPOINT_SEED_OFFSET + step).
 CHECKPOINT_SEED_OFFSET = 7_000_000
@@ -284,6 +299,7 @@ class Trainer:
         self.logger = Logger(config["training"]["training_steps"])
         self._tb: tensorboard.TensorBoardWriter | None = None  # made at the first log
         self._reals_cache: dict = {}
+        self.spans = SpanStats(keep=1)  # the latest checkpoint's parts
         self.timings: dict[str, float] = {}  # seconds of the latest checkpoint's parts
         self.profile: dict | None = None
         self.ckpt_mgr = checkpoint_manager(config)
@@ -331,11 +347,12 @@ class Trainer:
         host = torch.from_numpy(np.stack([x for _ in range(k) for x in self._next_batches_np()]))
         if self._copy_stream is None:
             return host, None
-        host = host.pin_memory()
-        with torch.cuda.stream(self._copy_stream):
-            dev = host.to(self.device, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record(self._copy_stream)
+        with span("otm.train.h2d"):
+            host = host.pin_memory()
+            with torch.cuda.stream(self._copy_stream):
+                dev = host.to(self.device, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(self._copy_stream)
         return dev, ready
 
     def _unpack_group(self, group) -> list[Batches]:
@@ -403,57 +420,18 @@ class Trainer:
             self.group.barrier()
 
     def _run_loop(self, schedule, step, get_group, total) -> int:
-        config = self.config
-        final = config["training"]["training_steps"]
-        log_interval = config["evaluation"]["log_interval"]
-        ckpt_interval = config["evaluation"]["checkpoint_interval"]
-        profile_step = config["tpu"]["profile_step"]
-        path = run_dir(config)
+        profile_step = self.config["tpu"]["profile_step"]
+        path = run_dir(self.config)
         t0 = time.perf_counter()
         for k in schedule:
-            profiling = self.main and bool(profile_step) and step <= profile_step < step + k
-            if profiling:
-                prof = self._start_profile()
-                t_prof = time.perf_counter()
-            group = get_group() if get_group is not None else self._make_group(k)
-            for i, batches in enumerate(self._unpack_group(group)):
-                draws = draw_step(seeded_generator(self.seed, step + i, self.device),
-                                  config, self.models)
-                self.state, metrics = self.train_step(self.state, batches, draws)
-                self.logger.append_metrics(metrics)
-            if profiling:
-                self._stop_profile(prof, k, t_prof, path)
-            step += k
-
-            if step % log_interval == 0 or step == total:
-                line, means = self.logger.summary(step)
+            profiled = self.main and bool(profile_step) and step <= profile_step < step + k
+            with (profiling.trace(path / "trace", self.device) if profiled
+                  else contextlib.nullcontext()) as trace_path:
+                step = self._run_group(k, step, get_group, total, t0, sync=profiled)
+            if profiled:
+                self.profile = self._profile_of(trace_path, k)
                 if self.verbose:
-                    rate = (step - self.start_step) / (time.perf_counter() - t0)
-                    print(line + f" [{rate:.2f} it/s]", flush=True)
-                if self.main:
-                    path.mkdir(parents=True, exist_ok=True)
-                    with (path / "log").open("a") as f:
-                        f.write(line + "\n")
-                    with (path / "metrics.jsonl").open("a") as f:
-                        f.write(json.dumps({"step": step, **means}) + "\n")
-                if self.main and config["tpu"]["tensorboard"]:
-                    if self._tb is None:
-                        self._tb = tensorboard.TensorBoardWriter(path / "tensorboard")
-                    self._tb.write(step, means)
-                if config["tpu"]["halt_on_nonfinite"] and not all(
-                    np.isfinite(v) for v in means.values()
-                ):
-                    bad = [name for name, v in means.items() if not np.isfinite(v)]
-                    msg = (
-                        f"non-finite metrics {bad} in the interval ending at step {step}; "
-                        "halting before checkpointing the poisoned state; a resume "
-                        "restarts from the latest saved checkpoint (tpu.halt_on_nonfinite)"
-                    )
-                    raise TrainingDiverged(msg)
-
-            # on the cadence, and at the true end (a pause is no end)
-            if step % ckpt_interval == 0 or step == final:
-                self.checkpoint(step)
+                    print(f"profile of {k} steps: {self.profile}")
             preempted = self._preempted
             if self.group is not None:
                 preempted = self.group.any(preempted)
@@ -461,42 +439,80 @@ class Trainer:
                 break
         return step
 
-    def _start_profile(self):
-        from torch.profiler import ProfilerActivity, profile
+    def _run_group(self, k, step, get_group, total, t0, *, sync: bool) -> int:
+        """One group of ``k`` steps from ``step``, then its log line and
+        checkpoint when they fall on its end; -> the step reached.
+        ``sync``: the device's work of the steps ends inside
+        ``otm.train.steps``."""
+        config = self.config
+        final = config["training"]["training_steps"]
+        log_interval = config["evaluation"]["log_interval"]
+        ckpt_interval = config["evaluation"]["checkpoint_interval"]
+        with span("otm.train.steps"):
+            with span("otm.train.data_wait"):
+                group = get_group() if get_group is not None else self._make_group(k)
+            for i, batches in enumerate(self._unpack_group(group)):
+                draws = draw_step(seeded_generator(self.seed, step + i, self.device),
+                                  config, self.models)
+                self.state, metrics = self.train_step(self.state, batches, draws)
+                self.logger.append_metrics(metrics)
+            if sync and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        step += k
 
-        activities = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-            torch.cuda.synchronize(self.device)
-        prof = profile(activities=activities)
-        prof.start()
-        return prof
+        if step % log_interval == 0 or step == total:
+            with span("otm.train.log"):
+                self._log(step, t0)
+        # on the cadence, and at the true end (a pause is no end)
+        if step % ckpt_interval == 0 or step == final:
+            self.checkpoint(step)
+        return step
 
-    def _stop_profile(self, prof, steps: int, t_start: float, path: Path) -> None:
-        """Stop the trace once the group's steps have finished on the
-        device; keep the device's busy share of the group's wall time in
-        ``self.profile``."""
-        from torch.autograd import DeviceType
+    def _log(self, step: int, t0: float) -> None:
+        """The log line of ``step``: printed, appended to ``<run>/log`` and
+        ``metrics.jsonl``, and to TensorBoard; raises ``TrainingDiverged``
+        on a non-finite mean."""
+        config = self.config
+        path = run_dir(config)
+        line, means = self.logger.summary(step)
+        if self.verbose:
+            rate = (step - self.start_step) / (time.perf_counter() - t0)
+            print(line + f" [{rate:.2f} it/s]", flush=True)
+        if self.main:
+            path.mkdir(parents=True, exist_ok=True)
+            with (path / "log").open("a") as f:
+                f.write(line + "\n")
+            with (path / "metrics.jsonl").open("a") as f:
+                f.write(json.dumps({"step": step, **means}) + "\n")
+        if self.main and config["tpu"]["tensorboard"]:
+            if self._tb is None:
+                self._tb = tensorboard.TensorBoardWriter(path / "tensorboard")
+            self._tb.write(step, means)
+        if config["tpu"]["halt_on_nonfinite"] and not all(
+            np.isfinite(v) for v in means.values()
+        ):
+            bad = [name for name, v in means.items() if not np.isfinite(v)]
+            msg = (
+                f"non-finite metrics {bad} in the interval ending at step {step}; "
+                "halting before checkpointing the poisoned state; a resume "
+                "restarts from the latest saved checkpoint (tpu.halt_on_nonfinite)"
+            )
+            raise TrainingDiverged(msg)
 
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        wall_s = time.perf_counter() - t_start
-        prof.stop()
-        trace_dir = path / "trace"
-        trace_dir.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(trace_dir / "trace.json"))
+    def _profile_of(self, trace_path: Path, steps: int) -> dict:
+        """The profiled group's steps: their wall time (the trace's last
+        ``otm.train.steps`` span) and the device's busy time inside it, the
+        union of its operations' intervals (None on the CPU)."""
+        events = profiling.trace_events(trace_path)
+        group = [e for e in events
+                 if e.get("name") == "otm.train.steps" and e.get("cat") == "user_annotation"][-1]
+        window = (float(group["ts"]), float(group["ts"]) + float(group["dur"]))
+        wall_ms = float(group["dur"]) / 1e3
         busy_ms = None
         if self.device.type == "cuda":
-            busy_ms = sum(
-                getattr(evt, "self_device_time_total", 0.0) / 1e3
-                for evt in prof.key_averages() if evt.device_type == DeviceType.CUDA
-            )
-        self.profile = {
-            "steps": steps, "wall_ms": wall_s * 1e3, "device_busy_ms": busy_ms,
-            "idle_share": None if busy_ms is None else 1.0 - busy_ms / (wall_s * 1e3),
-        }
-        if self.verbose:
-            print(f"profile of {steps} steps: {self.profile}")
+            busy_ms = profiling.device_busy_s(profiling.device_intervals(events, window)) * 1e3
+        return {"steps": steps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                "idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms}
 
     def checkpoint(self, step: int) -> None:
         """Image grids, validation FID/KID and the model checkpoint of
@@ -507,14 +523,14 @@ class Trainer:
             self._barrier()
             return
         gen = seeded_generator(self.seed, CHECKPOINT_SEED_OFFSET + step, self.device)
-        t0 = time.perf_counter()
-        image_checkpoint(step, self.config, self.models, self.state,
-                         self.grid_print_iter, self.grid_mark_iter, gen)
-        t1 = time.perf_counter()
-        val_checkpoint(step, self.config, self.models, self.state, self.val_iter, gen,
-                       real_images=self.shoemark_images, reals_cache=self._reals_cache)
-        t2 = time.perf_counter()
-        save_checkpoint(self.ckpt_mgr, step, self.state)
-        t3 = time.perf_counter()
-        self.timings = {"image": t1 - t0, "val": t2 - t1, "save": t3 - t2}
+        with span("otm.train.checkpoint.image", self.spans):
+            image_checkpoint(step, self.config, self.models, self.state,
+                             self.grid_print_iter, self.grid_mark_iter, gen)
+        with span("otm.train.checkpoint.val", self.spans):
+            val_checkpoint(step, self.config, self.models, self.state, self.val_iter, gen,
+                           real_images=self.shoemark_images, reals_cache=self._reals_cache)
+        with span("otm.train.checkpoint.save", self.spans):
+            save_checkpoint(self.ckpt_mgr, step, self.state)
+        self.timings = {part: self.spans.last(f"otm.train.checkpoint.{part}") / 1e3
+                        for part in ("image", "val", "save")}
         self._barrier()

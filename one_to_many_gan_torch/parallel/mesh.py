@@ -54,6 +54,7 @@ import torch
 import torch.distributed as dist
 
 from one_to_many_gan_torch.parallel.halo import Spatial
+from one_to_many_gan_torch.utils.profiling import span
 
 
 class DataParallel:
@@ -112,7 +113,8 @@ class DataParallel:
         over the data rows: one flat float32 buffer and one all-reduce over
         the world per group. ``metrics`` (0-d tensors, the same on every
         rank of a spatial subgroup, so taken at ``1 / S`` each) ride in the
-        last buffer -> their means over the data rows."""
+        last buffer -> their means over the data rows. Each group's
+        exchange is an ``otm.train.exchange`` span."""
         groups = [[p for p in params if p.grad is not None] for params in param_groups]
         out = []
         s = self.spatial_ranks
@@ -121,14 +123,15 @@ class DataParallel:
             if i == len(groups) - 1:
                 extra = [m.reshape(1).float() / s if s > 1 else m.reshape(1).float()
                          for m in metrics]
-            flat = torch.cat([p.grad.reshape(-1).float() for p in params] + extra)
-            dist.all_reduce(flat)
-            flat /= self.data_ranks
-            offset = 0
-            for p in params:
-                n = p.grad.numel()
-                p.grad.copy_(flat[offset : offset + n].view_as(p.grad))
-                offset += n
+            with span("otm.train.exchange"):
+                flat = torch.cat([p.grad.reshape(-1).float() for p in params] + extra)
+                dist.all_reduce(flat)
+                flat /= self.data_ranks
+                offset = 0
+                for p in params:
+                    n = p.grad.numel()
+                    p.grad.copy_(flat[offset : offset + n].view_as(p.grad))
+                    offset += n
             out = list(flat[offset:].unbind(0)) if extra else out
         return out
 

@@ -38,7 +38,16 @@ API (stdlib ``http.server``):
 
 - ``GET /healthz`` -> ``{"status": "ok", "step": N, "ema": bool,
   "data_parallel": k, "int8": bool, ...}``
-- ``GET /stats``   -> request count + latency percentiles (ms)
+- ``GET /stats``   -> ``requests``, ``errors`` and ``latency_ms``
+  (``p50``, ``p95``, ``max``: ``do_POST`` entry to the reply ready to send,
+  counted before it is sent); ``spans``: ``count``, ``p50``, ``p95`` and
+  ``max`` (ms) of ``otm.http.request`` (the same), ``otm.batcher.queue``
+  (``submit`` to the request's group taken), ``otm.engine.call`` (one
+  ``generate_batch``, warm-up left out) and ``otm.http.reply`` (images in
+  hand to the body written); and ``batching`` (with the batcher):
+  ``device_calls``, ``coalesced_requests``, ``hangs``,
+  ``queue_depth_max`` (the deepest queue seen when a group was taken)
+  and ``padded_rows`` (batch bucket minus group size, summed)
 - ``POST /generate?n=8&seed=0&theta=1.0`` with a PNG/JPEG body ->
   ``application/zip`` of ``n`` PNG shoemarks (``shoemark_0000.png``...)
 - ``POST /generate?...&format=npy`` -> one ``[n, H, W, C]`` uint8
@@ -47,6 +56,14 @@ API (stdlib ``http.server``):
   configured run's newest checkpoint (``<run>/models/<step>.tar``), so a
   server follows a training run; 400 for an engine that serves an
   artifact (immutable)
+
+Spans (``utils.profiling.span``: a ``torch.profiler`` range while a
+profiler runs, on its clock beside the kernels; otherwise a flag check):
+the handler's ``otm.http.request``, ``.decode``, ``.wait`` and ``.reply``;
+the dispatcher's ``otm.batcher.collect`` (the window), ``.launch`` (the
+group taken to the watchdog thread started) and ``.deliver``; the
+engine's ``otm.engine.call``, ``.prepare``, ``.draws``, ``.encode``,
+``.styles``, ``.decode`` (a chunk), ``.readback`` and ``.gather``.
 
 CLI:
     python -m one_to_many_gan_torch.serve config.toml [--artifact model.npz] \
@@ -84,6 +101,7 @@ from one_to_many_gan_torch.data.pipeline import normalize_u8
 from one_to_many_gan_torch.device import select_device
 from one_to_many_gan_torch.export import load_inference_artifact
 from one_to_many_gan_torch.migrate import checkpoint_manager, load_inference_weights
+from one_to_many_gan_torch.utils.profiling import SpanStats, span
 
 
 def _decode_image_bytes(data: bytes, image_size, channels: int) -> np.ndarray:
@@ -189,6 +207,7 @@ class InferenceEngine:
         self._pool = ThreadPoolExecutor(max(1, self.data_parallel - 1),
                                         thread_name_prefix="replica")
         self.device_calls = 0
+        self.stats = SpanStats()  # otm.engine.call, for the server's /stats
 
     def _resolve_data_parallel(self, k: int, dev: torch.device) -> int:
         """-1 -> every visible card (one on the CPU); checks that the
@@ -260,6 +279,7 @@ class InferenceEngine:
                 if bb == 1 or bb > cap:
                     continue
                 self.generate_batch([zero] * bb, [b] * bb, [0] * bb, [1.0] * bb)
+        self.stats = SpanStats()  # /stats times served calls, not these
         return time.perf_counter() - t0
 
     def generate(
@@ -286,31 +306,39 @@ class InferenceEngine:
         are zeros and discarded). Request i's output depends only on its
         own (image, seed, theta) and the n bucket.
         """
-        b = len(images_u8)
-        n_bucket = max(self.bucket_for(n) for n in ns)
-        bb = self.batch_bucket_for(b)
-        src = np.zeros((bb, *self.image_size, self.channels), np.uint8)
-        for i, im in enumerate(images_u8):
-            src[i] = im
-        # two's-complement wrap: negative / >= 2^32 seeds keep working, and
-        # a bad seed never fails the other requests coalesced into the group
-        seed_arr = np.zeros((bb,), np.int64)
-        seed_arr[:b] = [int(s) & 0xFFFFFFFF for s in seeds]
-        theta_arr = np.zeros((bb,), np.float32)
-        theta_arr[:b] = np.asarray(thetas, np.float32)
-        imgs = torch.from_numpy(normalize_u8(src))
-        thetas_t = torch.from_numpy(theta_arr)
+        with span("otm.engine.call", self.stats):
+            return self._generate_batch(images_u8, ns, seeds, thetas)
+
+    def _generate_batch(self, images_u8, ns, seeds, thetas) -> list[np.ndarray]:
+        with span("otm.engine.prepare"):
+            b = len(images_u8)
+            n_bucket = max(self.bucket_for(n) for n in ns)
+            bb = self.batch_bucket_for(b)
+            src = np.zeros((bb, *self.image_size, self.channels), np.uint8)
+            for i, im in enumerate(images_u8):
+                src[i] = im
+            # two's-complement wrap: negative / >= 2^32 seeds keep working, and
+            # a bad seed never fails the other requests coalesced into the group
+            seed_arr = np.zeros((bb,), np.int64)
+            seed_arr[:b] = [int(s) & 0xFFFFFFFF for s in seeds]
+            theta_arr = np.zeros((bb,), np.float32)
+            theta_arr[:b] = np.asarray(thetas, np.float32)
+            imgs = torch.from_numpy(normalize_u8(src))
+            thetas_t = torch.from_numpy(theta_arr)
         with self._lock:
-            z = self._draws(seed_arr, n_bucket)
-            # the draws reach every card before any decode is queued (a copy
-            # queued after a card's decode would wait for it)
-            zs = [z.to(replica.device) for replica in self.replicas]
+            with span("otm.engine.draws"):
+                z = self._draws(seed_arr, n_bucket)
+                # the draws reach every card before any decode is queued (a
+                # copy queued after a card's decode would wait for it)
+                zs = [z.to(replica.device) for replica in self.replicas]
             m = bb * n_bucket // self.data_parallel
 
             def part(i: int) -> np.ndarray:
                 """Replica i's rows, decoded and read back."""
                 rows = slice(i * m, (i + 1) * m)
-                return _to_u8(self._fns[i](imgs, zs[i], thetas_t, rows=rows)).cpu().numpy()
+                images = self._fns[i](imgs, zs[i], thetas_t, rows=rows)
+                with span("otm.engine.readback"):
+                    return _to_u8(images).cpu().numpy()
 
             # replicas 1.. from threads of their own, the first from this
             # one, so that the cards' launches are queued at once
@@ -319,10 +347,12 @@ class InferenceEngine:
                 first = part(0)
             finally:
                 wait(others)  # none outlives the lock
-            flat = np.concatenate([first] + [f.result() for f in others])
+            with span("otm.engine.gather"):
+                flat = np.concatenate([first] + [f.result() for f in others])
+                u8 = flat.reshape(bb, n_bucket, *flat.shape[1:])
+                outs = [u8[i, : ns[i]] for i in range(b)]
             self.device_calls += 1
-        u8 = flat.reshape(bb, n_bucket, *flat.shape[1:])
-        return [u8[i, : ns[i]] for i in range(b)]
+        return outs
 
 
 def _to_u8(images: torch.Tensor) -> torch.Tensor:
@@ -350,6 +380,12 @@ def _call_with_watchdog(fn, timeout_s: float, label: str):
     """
     if timeout_s <= 0:
         return fn()
+    return _await_call(*_start_call(fn, label), timeout_s, label)
+
+
+def _start_call(fn, label: str) -> tuple[dict, threading.Event]:
+    """Start ``fn()`` in a one-shot daemon worker thread; -> (box, done):
+    ``done`` is set once ``box`` holds its ``result`` or ``error``."""
     box: dict = {}
     done = threading.Event()
 
@@ -361,8 +397,13 @@ def _call_with_watchdog(fn, timeout_s: float, label: str):
         finally:
             done.set()
 
-    t = threading.Thread(target=worker, name=f"otm-watchdog-{label}", daemon=True)
-    t.start()
+    threading.Thread(target=worker, name=f"otm-watchdog-{label}", daemon=True).start()
+    return box, done
+
+
+def _await_call(box: dict, done: threading.Event, timeout_s: float, label: str):
+    """Wait up to ``timeout_s`` for a ``_start_call``; its result, or raise
+    its error or ``DeviceHangError``."""
     if not done.wait(timeout_s):
         msg = (
             f"device call '{label}' exceeded the {timeout_s:.0f}s watchdog "
@@ -387,12 +428,19 @@ class _Batcher:
     wedged device fails the GROUP with ``DeviceHangError`` (503) while the
     dispatcher survives; ``request_timeout_s`` bounds each client's total
     wait in ``submit``. Either knob <= 0 disables that bound.
+
+    Counters: ``batches`` (device calls), ``coalesced`` (requests beyond
+    the first of each), ``hangs``, ``queue_depth_max`` (the deepest queue
+    seen when a group was taken) and ``padded_rows`` (batch bucket minus
+    group size, summed); each request's wait from ``submit`` to its group
+    being taken goes to ``stats`` as ``otm.batcher.queue``.
     """
 
     def __init__(self, engine: InferenceEngine, max_batch: int = 4,
                  window_ms: float = 3.0, device_timeout_s: float = 60.0,
-                 request_timeout_s: float = 120.0):
+                 request_timeout_s: float = 120.0, stats: SpanStats | None = None):
         self.engine = engine
+        self.stats = SpanStats() if stats is None else stats
         if int(max_batch) > engine.batch_buckets[-1]:
             warnings.warn(
                 f"max_batch={max_batch} exceeds the largest compiled batch "
@@ -410,6 +458,8 @@ class _Batcher:
         self._shutdown = False
         self.batches = 0
         self.coalesced = 0
+        self.queue_depth_max = 0
+        self.padded_rows = 0
         self._thread = threading.Thread(
             target=self._loop, name="otm-batcher", daemon=True
         )
@@ -417,8 +467,9 @@ class _Batcher:
 
     def submit(self, src: np.ndarray, n: int, seed: int, theta: float):
         """Enqueue one request and block until its result (or raise)."""
+        entered = time.perf_counter()
         bucket = self.engine.bucket_for(n)  # invalid n fails fast, unqueued
-        box: dict = {"event": threading.Event()}
+        box: dict = {"event": threading.Event(), "entered": entered}
         with self._cv:
             if self._shutdown:
                 msg = "server is shutting down"
@@ -461,44 +512,56 @@ class _Batcher:
                         box["event"].set()
                     self._queue = []
                     return
-                # each enqueue notifies, so wait() can return after part of
-                # a burst: keep waiting until the batch is full or the
-                # window expires
-                deadline = time.monotonic() + self.window_s
-                while (
-                    len(self._queue) < self.max_batch
-                    and not self._shutdown
-                    and (remaining := deadline - time.monotonic()) > 0
-                ):
-                    self._cv.wait(remaining)
-                group = self._take_group()
-            # bind the arg lists NOW: an abandoned watchdog worker must not
-            # read `group` after the loop rebinds it for the next group
-            srcs, ns, seeds, thetas = (
-                [g[1] for g in group],
-                [g[2] for g in group],
-                [g[3] for g in group],
-                [g[4] for g in group],
-            )
-            try:
-                outs = _call_with_watchdog(
-                    lambda srcs=srcs, ns=ns, seeds=seeds, thetas=thetas:
-                        self.engine.generate_batch(srcs, ns, seeds, thetas),
-                    self.device_timeout_s,
-                    "generate_batch",
-                )
-            except Exception as exc:  # noqa: BLE001 — fail the group, not the loop
-                if isinstance(exc, DeviceHangError):
-                    self.hangs += 1
+                with span("otm.batcher.collect"):
+                    # each enqueue notifies, so wait() can return after part
+                    # of a burst: keep waiting until the batch is full or the
+                    # window expires
+                    deadline = time.monotonic() + self.window_s
+                    while (
+                        len(self._queue) < self.max_batch
+                        and not self._shutdown
+                        and (remaining := deadline - time.monotonic()) > 0
+                    ):
+                        self._cv.wait(remaining)
+                    depth = len(self._queue)
+                    group = self._take_group()
+            taken = time.perf_counter()
+            with span("otm.batcher.launch"):
                 for *_, box in group:
-                    box["error"] = exc
-                    box["event"].set()
+                    self.stats.record("otm.batcher.queue", (taken - box["entered"]) * 1e3)
+                self.queue_depth_max = max(self.queue_depth_max, depth)
+                self.padded_rows += self.engine.batch_bucket_for(len(group)) - len(group)
+                # bind the arg lists NOW: an abandoned watchdog worker must
+                # not read `group` after the loop rebinds it for the next group
+                srcs, ns, seeds, thetas = (
+                    [g[1] for g in group],
+                    [g[2] for g in group],
+                    [g[3] for g in group],
+                    [g[4] for g in group],
+                )
+
+                def call(srcs=srcs, ns=ns, seeds=seeds, thetas=thetas):
+                    return self.engine.generate_batch(srcs, ns, seeds, thetas)
+
+                started = (_start_call(call, "generate_batch")
+                           if self.device_timeout_s > 0 else None)
+            try:
+                outs = (call() if started is None
+                        else _await_call(*started, self.device_timeout_s, "generate_batch"))
+            except Exception as exc:  # noqa: BLE001 — fail the group, not the loop
+                with span("otm.batcher.deliver"):
+                    if isinstance(exc, DeviceHangError):
+                        self.hangs += 1
+                    for *_, box in group:
+                        box["error"] = exc
+                        box["event"].set()
                 continue
-            self.batches += 1
-            self.coalesced += len(group) - 1
-            for (*_, box), out in zip(group, outs):
-                box["result"] = out
-                box["event"].set()
+            with span("otm.batcher.deliver"):
+                self.batches += 1
+                self.coalesced += len(group) - 1
+                for (*_, box), out in zip(group, outs):
+                    box["result"] = out
+                    box["event"].set()
 
     def close(self) -> None:
         with self._cv:
@@ -511,40 +574,29 @@ class _Batcher:
             "device_calls": self.batches,
             "coalesced_requests": self.coalesced,
             "hangs": self.hangs,
+            "queue_depth_max": self.queue_depth_max,
+            "padded_rows": self.padded_rows,
         }
 
 
-class _Stats:
-    def __init__(self):
-        self.lock = threading.Lock()
-        self.latencies_ms: list[float] = []
-        self.errors = 0
-
-    def record(self, ms: float):
-        with self.lock:
-            self.latencies_ms.append(ms)
-            # bounded memory for long-lived servers
-            if len(self.latencies_ms) > 10_000:
-                del self.latencies_ms[:5_000]
-
-    def error(self):
-        with self.lock:
-            self.errors += 1
-
-    def snapshot(self) -> dict:
-        with self.lock:
-            lat = np.asarray(self.latencies_ms, np.float64)
-            out = {"requests": int(lat.size), "errors": self.errors}
-            if lat.size:
-                out["latency_ms"] = {
-                    "p50": round(float(np.percentile(lat, 50)), 2),
-                    "p95": round(float(np.percentile(lat, 95)), 2),
-                    "max": round(float(lat.max()), 2),
-                }
-            return out
+def _stats_payload(stats: SpanStats, engine: InferenceEngine,
+                  batcher: _Batcher | None = None) -> dict:
+    """``GET /stats``: requests, errors and ``latency_ms`` from the
+    ``otm.http.request`` span, ``spans`` (the server's and the engine's),
+    and the batcher's counters as ``batching``."""
+    spans = {**stats.snapshot(), **engine.stats.snapshot()}
+    out = {"requests": 0, "errors": stats.errors}
+    request = spans.get("otm.http.request")
+    if request is not None:
+        out["requests"] = request["count"]
+        out["latency_ms"] = {k: request[k] for k in ("p50", "p95", "max")}
+    out["spans"] = spans
+    if batcher is not None:
+        out["batching"] = batcher.snapshot()
+    return out
 
 
-def make_handler(engine: InferenceEngine, stats: _Stats,
+def make_handler(engine: InferenceEngine, stats: SpanStats,
                  batcher: _Batcher | None = None,
                  device_timeout_s: float = 60.0):
     """Build the request-handler class bound to one engine instance."""
@@ -591,10 +643,7 @@ def make_handler(engine: InferenceEngine, stats: _Stats,
                     },
                 )
             elif path == "/stats":
-                snap = stats.snapshot()
-                if batcher is not None:
-                    snap["batching"] = batcher.snapshot()
-                self._json(200, snap)
+                self._json(200, _stats_payload(stats, engine, batcher))
             else:
                 self._json(404, {"error": f"unknown path {path}"})
 
@@ -612,6 +661,10 @@ def make_handler(engine: InferenceEngine, stats: _Stats,
             if url.path != "/generate":
                 self._json(404, {"error": f"unknown path {url.path}"})
                 return
+            with span("otm.http.request"):
+                self._generate(url)
+
+        def _generate(self, url):
             t0 = time.perf_counter()
             try:
                 q = parse_qs(url.query)
@@ -626,10 +679,12 @@ def make_handler(engine: InferenceEngine, stats: _Stats,
                     raise ValueError("request body (source image) required")
                 if length > 64 * 1024 * 1024:
                     raise ValueError("request body exceeds 64MB limit")
-                src = _decode_image_bytes(
-                    self.rfile.read(length), engine.image_size, engine.channels
-                )
-                outs = run_generate(src, n, seed, theta)
+                with span("otm.http.decode"):
+                    src = _decode_image_bytes(
+                        self.rfile.read(length), engine.image_size, engine.channels
+                    )
+                with span("otm.http.wait"):
+                    outs = run_generate(src, n, seed, theta)
             except ValueError as exc:
                 stats.error()
                 self._json(400, {"error": str(exc)})
@@ -644,24 +699,25 @@ def make_handler(engine: InferenceEngine, stats: _Stats,
                 self._json(500, {"error": f"{type(exc).__name__}: {exc}"})
                 return
 
-            if fmt == "npy":
-                buf = io.BytesIO()
-                np.save(buf, outs)
-                body, ctype = buf.getvalue(), "application/octet-stream"
-            else:
-                buf = io.BytesIO()
-                with zipfile.ZipFile(buf, "w", zipfile.ZIP_STORED) as zf:
-                    for i, arr in enumerate(outs):
-                        zf.writestr(f"shoemark_{i:04d}.png", _encode_png(arr))
-                body, ctype = buf.getvalue(), "application/zip"
-            # counted before the reply is sent, so a client that has its
-            # reply always finds the request in /stats
-            stats.record((time.perf_counter() - t0) * 1e3)
-            self.send_response(200)
-            self.send_header("Content-Type", ctype)
-            self.send_header("Content-Length", str(len(body)))
-            self.end_headers()
-            self.wfile.write(body)
+            with span("otm.http.reply", stats):
+                if fmt == "npy":
+                    buf = io.BytesIO()
+                    np.save(buf, outs)
+                    body, ctype = buf.getvalue(), "application/octet-stream"
+                else:
+                    buf = io.BytesIO()
+                    with zipfile.ZipFile(buf, "w", zipfile.ZIP_STORED) as zf:
+                        for i, arr in enumerate(outs):
+                            zf.writestr(f"shoemark_{i:04d}.png", _encode_png(arr))
+                    body, ctype = buf.getvalue(), "application/zip"
+                # counted before the reply is sent, so a client that has its
+                # reply always finds the request in /stats
+                stats.record("otm.http.request", (time.perf_counter() - t0) * 1e3)
+                self.send_response(200)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
 
     return Handler
 
@@ -681,16 +737,17 @@ def make_server(
     directly). The batcher is exposed as ``server.batcher``; close it when
     tearing the server down.
     """
+    stats = SpanStats()
     batcher = (
         _Batcher(engine, max_batch, window_ms,
                  device_timeout_s=device_timeout_s,
-                 request_timeout_s=request_timeout_s)
+                 request_timeout_s=request_timeout_s, stats=stats)
         if max_batch > 1
         else None
     )
     server = ThreadingHTTPServer(
         (host, port),
-        make_handler(engine, _Stats(), batcher, device_timeout_s=device_timeout_s),
+        make_handler(engine, stats, batcher, device_timeout_s=device_timeout_s),
     )
     server.batcher = batcher
     return server

@@ -1,2 +1,3 @@
 """Host utilities: the optional TensorBoard sink, and profiling (a
-``torch.profiler`` trace of a block, a step timer)."""
+``torch.profiler`` trace of a block, the program's spans, the device's
+busy time in a trace)."""

@@ -209,10 +209,21 @@ def test_grids_and_validation_images(run):
 
 
 def test_profile_step_traces_its_group(run):
+    """The group of step 3 (the last, with the log line and checkpoint at
+    4) is traced through utils.profiling.trace, with the Trainer's spans;
+    its idle share, where there is a device, comes from the union of the
+    device's intervals and lies in [0, 1]."""
     config, trainer, _ = run
     assert trainer.profile["steps"] == 1 and trainer.profile["wall_ms"] > 0
     assert trainer.profile["device_busy_ms"] is None  # no device on the CPU
-    assert (_run_dir(config) / "trace" / "trace.json").stat().st_size > 0
+    idle = trainer.profile["idle_share"]
+    assert idle is None or 0.0 <= idle <= 1.0
+    (path,) = (_run_dir(config) / "trace").glob("*.trace.json")
+    names = {e["name"] for e in json.loads(path.read_text())["traceEvents"]
+             if e.get("cat") == "user_annotation"}
+    assert {"otm.train.steps", "otm.train.data_wait", "otm.train.d_phase",
+            "otm.train.g_phase", "otm.train.log", "otm.train.checkpoint.image",
+            "otm.train.checkpoint.val", "otm.train.checkpoint.save"} <= names
 
 
 def test_checkpoint_round_trip_is_bitwise(run, tmp_path):
