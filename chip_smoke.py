@@ -172,7 +172,14 @@ started together), then runs, in order:
    the ``[inception_v3_pool3]`` tag in the log and ``metrics.jsonl``, the
    FID's and KID's times; the extractor's features on the card against the
    CPU (float32, TF32 off), its images/s at batch 32, the 299x299 resize's
-   time, and a ``utils.profiling.trace`` of one extractor call.
+   time, and a ``utils.profiling.trace`` of one extractor call;
+21. the 2x upsample kernel (``ops/cuda/upsample.py``) at the serving
+   decode's two sites (a chunk of 86 images), bfloat16 and float32,
+   against its plain version, a second launch bitwise equal, with the
+   kernel's, the plain version's (the library path it replaced: per axis
+   an edge pad and cuDNN's transposed conv) and the bound's times, cold
+   L2; and the launches of one bfloat16 engine call of 4 requests at
+   n = 64: 6.
    Four cards: ``scripts/multi_card_smoke.py``.
 
 Any failed check raises, and the script exits non-zero. Before its last
@@ -490,6 +497,28 @@ INT8_FIRST_SITE_FLIPS = 1e-3
 INT8_PSNR_FLOOR = 30.0
 INT8_CPU_N = 8
 
+# Phase 21, the 2x upsample kernel at the serving decode's two sites: the
+# input (B, C, H, W) of each for a chunk of 86 images (an engine call of 4
+# requests at n = 64 decodes 256 in chunks of 86, 85, 85).
+UP_SITES = {"site1": (86, 256, 128, 64), "site2": (86, 128, 256, 128)}
+UP_REPLACES = ("no Pallas kernel: XLA's lhs-dilated conv (ops/resample.py::_double_blur_axis "
+               "of the JAX package) along H and W; in the port, ops/resample.py::_double_blur's "
+               "two F.conv_transpose2d (cuDNN dgrad2d_grouped_direct_kernel) and their "
+               "_edge_pad replication pads")
+# The kernel sums the nine taps in float32 and rounds once. Against the
+# plain version in float32 (TF32 off): float32 within UP_TOL32 of the
+# largest |x| (two float32 sums of the taps in other orders: each pass errs
+# by at most 3 * 2^-24 of it); bfloat16 within half a bf16 ulp of each
+# output, 2^-8 |y|, plus that. Against the plain version in the input's
+# dtype (what the port ran before), of the largest |x|: bfloat16 3 * 2^-8,
+# since the plain version rounds between its passes too (each rounding
+# errs by at most 2^-8 of the values it rounds, all within the largest |x|).
+UP_TOL32 = 1e-6
+UP_TOL = {"float32": UP_TOL32, "bfloat16": 3 * 2**-8}
+UP_REPS = 10
+UP_REQUESTS, UP_N = 4, 64
+UP_LAUNCHES_PER_CALL = 6  # 3 decode chunks x 2 sites
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -743,6 +772,7 @@ def _check_out(out: np.ndarray, n: int, h: int, w: int) -> None:
 
 def phase_serve(torch, config, source: np.ndarray) -> tuple[dict, object]:
     from one_to_many_gan_torch.ops.cuda import fused_instance_norm
+    from one_to_many_gan_torch.ops.cuda import upsample as upsample_kernel
     from one_to_many_gan_torch.serve import InferenceEngine, make_server
 
     h, w = config["data"]["image_size"]
@@ -758,6 +788,7 @@ def phase_serve(torch, config, source: np.ndarray) -> tuple[dict, object]:
     result = {"warmup_s": warm_s, "buckets": {}}
     try:
         fused_instance_norm.launches = 0
+        upsample_kernel.upsample2x.launches = 0
         engine.device_calls = 0
         # the main path: HTTP requests through the batcher to the card
         for n in BUCKETS:
@@ -800,6 +831,7 @@ def phase_serve(torch, config, source: np.ndarray) -> tuple[dict, object]:
         health = _get(port, "/healthz")
         stats = _get(port, "/stats")
         launches, calls = fused_instance_norm.launches, engine.device_calls
+        up_launches = upsample_kernel.upsample2x.launches
     finally:
         server.shutdown()
         server.server_close()
@@ -812,7 +844,8 @@ def phase_serve(torch, config, source: np.ndarray) -> tuple[dict, object]:
     check(calls > 0 and launches == 9 * calls,
           f"IN launches {launches} for {calls} device calls (want 9 per call)")
     log(f"IN kernel launches on the main path: {launches} for {calls} device calls "
-        f"({launches // calls} per call)")
+        f"({launches // calls} per call); upsample kernel launches {up_launches}")
+    check(up_launches >= 2 * calls, f"{up_launches} upsample launches for {calls} device calls")
     # batch equals solo on the card: one coalesced call against solo calls
     imgs = [_source_image(10 + i, h, w) for i in range(3)]
     batched = engine.generate_batch(imgs, [8, 8, 8], [1, 2, 3], [1.0, 0.5, 1.0])
@@ -820,7 +853,8 @@ def phase_serve(torch, config, source: np.ndarray) -> tuple[dict, object]:
         solo = engine.generate(imgs[i], 8, seed=i + 1, theta=[1.0, 0.5, 1.0][i])
         diff = np.abs(batched[i].astype(int) - solo.astype(int)).max()
         check(diff <= 1, f"coalesced request {i} differs from solo by {diff} levels")
-    result.update({"launches": launches, "device_calls": calls, "stats": stats,
+    result.update({"launches": launches, "upsample_launches": up_launches,
+                   "device_calls": calls, "stats": stats,
                    "coalesced_requests": stats["batching"]["coalesced_requests"]})
     log("phase 3 ok: server answered every request; batch equals solo")
     return result, engine
@@ -859,6 +893,7 @@ def phase_card_vs_cpu(torch, config, engine, source: np.ndarray) -> tuple[dict, 
 def phase_bf16(torch, config, source: np.ndarray, card_f32: np.ndarray):
     from one_to_many_gan_torch.core import make_inference_fns
     from one_to_many_gan_torch.ops.cuda import fused_instance_norm
+    from one_to_many_gan_torch.ops.cuda import upsample as upsample_kernel
     from one_to_many_gan_torch.serve import InferenceEngine
 
     cfg = copy.deepcopy(config)
@@ -874,6 +909,7 @@ def phase_bf16(torch, config, source: np.ndarray, card_f32: np.ndarray):
     h, w = cfg["data"]["image_size"]
     latency = {}
     fused_instance_norm.launches = 0
+    upsample_kernel.upsample2x.launches = 0
     engine.device_calls = 0
     for n in BUCKETS:
         times = []
@@ -887,9 +923,13 @@ def phase_bf16(torch, config, source: np.ndarray, card_f32: np.ndarray):
         log(f"bf16 n={n}: engine.generate median {med:.2f} ms ({n / med * 1e3:.1f} images/s)")
     check(fused_instance_norm.launches == 9 * engine.device_calls,
           f"bf16 IN launches {fused_instance_norm.launches} for {engine.device_calls} calls")
+    # one decode chunk a call at these batches (B = 1, n <= 64): 2 upsamples
+    up_launches = upsample_kernel.upsample2x.launches
+    check(up_launches == 2 * engine.device_calls,
+          f"bf16 upsample launches {up_launches} for {engine.device_calls} calls")
     log("phase 5 ok")
     return {"mean_abs_vs_f32": float(diff.mean()), "max_abs_vs_f32": float(diff.max()),
-            "latency": latency}, engine
+            "latency": latency, "upsample_launches": up_launches}, engine
 
 
 # ---------------------------------------------------------------- phase 6
@@ -3697,6 +3737,96 @@ def phase_inception(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 21
+
+
+def up_errors(torch, got, x) -> dict:
+    """``got`` = the kernel's ``upsample2x(x)`` against the plain version
+    in float32 and in ``x``'s dtype (TF32 off): the largest excess over the
+    float32 bound (at most 0 when held) and the error and limit against the
+    plain version in ``x``'s dtype (module constants UP_TOL*)."""
+    from one_to_many_gan_torch.ops.resample import upsample2x_plain
+
+    scale = x.float().abs().max().item()
+    with _cudnn_flags(torch, allow_tf32=False):
+        y32 = upsample2x_plain(x.float())
+        own = y32 if x.dtype == torch.float32 else upsample2x_plain(x).float()
+    limit32 = UP_TOL32 * scale + (0 if x.dtype == torch.float32 else 2**-8 * y32.abs())
+    dtype_name = str(x.dtype).removeprefix("torch.")
+    return {"excess_vs_float32": ((got.float() - y32).abs() - limit32).max().item(),
+            "max_abs_err": (got.float() - own).abs().max().item(),
+            "tol": UP_TOL[dtype_name] * scale}
+
+
+def phase_upsample(torch, config) -> dict:
+    """The upsample kernel at the serving sites against its plain version
+    (the library path it replaced), timed beside it and its bound; the
+    launches of one bfloat16 engine call of UP_REQUESTS requests at n =
+    UP_N."""
+    from one_to_many_gan_torch.ops.cuda import upsample as up
+    from one_to_many_gan_torch.ops.resample import upsample2x_plain
+    from one_to_many_gan_torch.serve import InferenceEngine
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    flush = torch.zeros(128 * 2**20, dtype=torch.uint8, device="cuda")
+    cases = []
+    for dtype_name in ("bfloat16", "float32"):
+        for site, shape in UP_SITES.items():
+            x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(
+                getattr(torch, dtype_name))
+            got = up.upsample2x(x)
+            same = torch.equal(got, up.upsample2x(x))
+            errs = up_errors(torch, got, x)
+            err, tol = errs["max_abs_err"], errs["tol"]
+            del got
+            case = {"site": site, "shape": list(shape), "dtype": dtype_name, **errs,
+                    "repeat_bitwise_equal": same,
+                    **time_cold_ms(torch, {"kernel_ms": up.upsample2x,
+                                           "plain_ms": upsample2x_plain}, x, flush, UP_REPS),
+                    "bound_ms": up.bound_bytes(shape, x.element_size()) / HBM_BYTES_PER_S * 1e3}
+            # the plain version is the library path the kernel replaced: per
+            # axis a replication pad and cuDNN's grouped transposed conv
+            case["library_ms"] = case["plain_ms"]
+            case["of_bound"] = case["bound_ms"] / case["kernel_ms"]
+            cases.append(case)
+            log(f"upsample {dtype_name:8s} {site} {list(shape)}: max_abs_err {err:.3g} (tol "
+                f"{tol:.3g}), excess over the float32 bound {errs['excess_vs_float32']:.3g}; "
+                f"kernel {case['kernel_ms']:.4f} ms, plain = library {case['plain_ms']:.4f} ms, "
+                f"bound {case['bound_ms']:.4f} ms: {case['of_bound']:.1%} of the bound")
+            check(err <= tol and errs["excess_vs_float32"] <= 0,
+                  f"the upsample kernel disagrees with its plain version: {case}")
+            check(same, f"two upsample launches differ: {case}")
+            del x
+    del flush
+    torch.cuda.empty_cache()
+    sums = {dtype_name: {k: sum(c[k] for c in cases if c["dtype"] == dtype_name)
+                         for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+            for dtype_name in UP_TOL}
+    for dtype_name, t in sums.items():
+        log(f"upsample per decode chunk of 86 ({dtype_name}, 2 sites): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in t.items()))
+    # one engine call as the batcher makes it: 4 requests, each n = 64
+    cfg = copy.deepcopy(config)
+    cfg["tpu"]["precision"] = "bfloat16"
+    engine = InferenceEngine(cfg, buckets=BUCKETS)
+    h, w = cfg["data"]["image_size"]
+    sources = [_source_image(20 + i, h, w) for i in range(UP_REQUESTS)]
+    launches0, calls0 = up.upsample2x.launches, engine.device_calls
+    outs = engine.generate_batch(sources, [UP_N] * UP_REQUESTS, list(range(UP_REQUESTS)),
+                                 [1.0] * UP_REQUESTS)
+    launches, calls = up.upsample2x.launches - launches0, engine.device_calls - calls0
+    for out in outs:
+        _check_out(out, UP_N, h, w)
+    del engine
+    torch.cuda.empty_cache()
+    log(f"upsample launches in one bfloat16 engine call of {UP_REQUESTS} requests at "
+        f"n={UP_N}: {launches} in {calls} call(s) (want {UP_LAUNCHES_PER_CALL})")
+    check(calls == 1 and launches == UP_LAUNCHES_PER_CALL,
+          f"{launches} upsample launches in {calls} engine calls")
+    log("phase 21 ok")
+    return {"cases": cases, "per_chunk": sums, "call_launches": launches}
+
+
 # ---------------------------------------------------------------- phase 18
 
 
@@ -4143,6 +4273,7 @@ def main() -> int:
     report["profile_bf16"] = phase_profile(torch, engine, source, "bfloat16")
     del engine
     torch.cuda.empty_cache()
+    report["upsample"] = phase_upsample(torch, config)
     report["warp"] = phase_warp(torch)
     report["d_phase"] = phase_d_phase(torch)
     torch.cuda.empty_cache()
@@ -4364,6 +4495,34 @@ def main() -> int:
                                   split_steps["launches"][f"split_{kind}"]},
             "checked_in": "phase 19a",
         })
+    up_cases = report["upsample"]["cases"]
+    up_bf16 = report["upsample"]["per_chunk"]["bfloat16"]
+    up_by_phase = {"serve (phase 3)": report["serve"]["upsample_launches"],
+                   "bf16 serve (phase 5)": report["bf16"]["upsample_launches"],
+                   "one engine call of 4 requests at n=64 (phase 21)":
+                       report["upsample"]["call_launches"]}
+    kernels.append({
+        "name": "upsample2x",
+        "route": "cuda",
+        "source": "one_to_many_gan_torch/csrc/upsample.cu",
+        "replaces": UP_REPLACES,
+        "launches": sum(up_by_phase.values()),
+        "max_abs_err": max(c["max_abs_err"] for c in up_cases if c["dtype"] == "float32"),
+        "ms": up_bf16["kernel_ms"],
+        "plain_ms": up_bf16["plain_ms"],
+        "bound_ms": up_bf16["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": up_bf16["library_ms"],
+        "per": "the two upsample sites of one serving decode chunk of 86 images, bfloat16, one "
+               "call each, cold L2; plain and library: the plain version, per axis a "
+               "replication pad + cuDNN's grouped F.conv_transpose2d",
+        "sites": {f"{c['site']}_{c['dtype']}": {k: c[k] for k in (
+            "shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "of_bound")}
+            for c in up_cases},
+        "launches_per_call": report["upsample"]["call_launches"],
+        "launches_by_phase": up_by_phase,
+        "checked_in": "phase 21",
+    })
     report["wall_s"] = time.perf_counter() - t_start
     log(f"chip_smoke wall time {report['wall_s']:.1f} s")
     OUT.parent.mkdir(parents=True, exist_ok=True)

@@ -36,7 +36,7 @@ CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-ffp-contract=off", "-share
 CXX_LIBS = ("-ljpeg", "-lpng", "-lpthread")
 
 # The CUDA sources of the training and serving paths (csrc/<name>.cu).
-KERNELS = ("instance_norm", "warp", "int8_conv")
+KERNELS = ("instance_norm", "warp", "int8_conv", "upsample")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -30,6 +30,16 @@ downsampling twice, and PyTorch's own double backward of a grouped conv
 runs one conv per channel: at 512x512 it made R1's step 18.8 s instead
 of about 0.1 s.
 
+``upsample2x`` of a whole map is one ``autograd.Function``,
+``_Upsample2x``: on the card one launch of the hand-written kernel
+``ops/cuda/upsample.py`` (both axes and the edge pads in one pass), on
+the CPU its plain version ``upsample2x_plain`` (the two transposed FIRs
+above). Its backward is the exact adjoint from this module's ops: per
+axis, in reverse order, the stride-2 depthwise conv by the same six taps
+(``_DepthwiseConv``, padding 4: the transposed conv's crop), then the
+fold of the edge pad (``ops/pad.py``); so every derivative order stays
+depthwise convs.
+
 Under a spatial group (``parallel/halo.py``) ``upsample2x`` and
 ``downsample2x`` take their input's global height ``h`` and run on this
 rank's band of rows: each H pass fetches the input rows its output band
@@ -46,7 +56,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from one_to_many_gan_torch.ops.pad import pad
+from one_to_many_gan_torch.ops.cuda import upsample as upsample_kernel
+from one_to_many_gan_torch.ops.pad import _fold, pad
 from one_to_many_gan_torch.parallel import halo
 
 _BLUR = (0.25, 0.5, 0.25)
@@ -76,19 +87,21 @@ def _edge_pad(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 class _DepthwiseConv(torch.autograd.Function):
-    """``F.conv2d(x, k, stride, groups=C)`` by constant taps ``k``; its
-    backward is ``_DepthwiseConvT`` (module docstring)."""
+    """``F.conv2d(x, k, stride, padding, groups=C)`` by constant taps ``k``
+    (zero ``padding``); its backward is ``_DepthwiseConvT`` (module
+    docstring)."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, k: torch.Tensor, stride: tuple[int, int]):
+    def forward(ctx, x: torch.Tensor, k: torch.Tensor, stride: tuple[int, int],
+                padding: tuple[int, int] = (0, 0)):
         ctx.save_for_backward(k)
-        ctx.stride, ctx.size = stride, tuple(x.shape[-2:])
-        return F.conv2d(x, k, stride=stride, groups=x.shape[1])
+        ctx.stride, ctx.padding, ctx.size = stride, padding, tuple(x.shape[-2:])
+        return F.conv2d(x, k, stride=stride, padding=padding, groups=x.shape[1])
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         (k,) = ctx.saved_tensors
-        return _DepthwiseConvT.apply(g, k, ctx.stride, ctx.size), None, None
+        return _DepthwiseConvT.apply(g, k, ctx.stride, ctx.size, ctx.padding), None, None, None
 
 
 class _DepthwiseConvT(torch.autograd.Function):
@@ -97,17 +110,19 @@ class _DepthwiseConvT(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, g: torch.Tensor, k: torch.Tensor, stride: tuple[int, int],
-                size: tuple[int, int]):
+                size: tuple[int, int], padding: tuple[int, int]):
         ctx.save_for_backward(k)
-        ctx.stride = stride
-        extra = [n - ((m - 1) * s + t)
-                 for n, m, s, t in zip(size, g.shape[-2:], stride, k.shape[-2:], strict=True)]
-        return F.conv_transpose2d(g, k, stride=stride, output_padding=extra, groups=g.shape[1])
+        ctx.stride, ctx.padding = stride, padding
+        extra = [n - ((m - 1) * s - 2 * p + t)
+                 for n, m, s, p, t in zip(size, g.shape[-2:], stride, padding, k.shape[-2:],
+                                          strict=True)]
+        return F.conv_transpose2d(g, k, stride=stride, padding=padding, output_padding=extra,
+                                  groups=g.shape[1])
 
     @staticmethod
     def backward(ctx, gg: torch.Tensor):
         (k,) = ctx.saved_tensors
-        return _DepthwiseConv.apply(gg, k, ctx.stride), None, None, None
+        return _DepthwiseConv.apply(gg, k, ctx.stride, ctx.padding), None, None, None, None
 
 
 def _fir(x: torch.Tensor, taps: tuple[float, ...], dim: int, stride: int = 1) -> torch.Tensor:
@@ -133,6 +148,38 @@ def _double_blur(x: torch.Tensor, dim: int) -> torch.Tensor:
     return F.conv_transpose2d(
         _edge_pad(x, dim), k, stride=strides, padding=padding, groups=c
     )
+
+
+def upsample2x_plain(x: torch.Tensor) -> torch.Tensor:
+    """``_double_blur`` along H, then W: the upsample kernel's plain
+    version, which CPU tensors take."""
+    return _double_blur(_double_blur(x, 2), 3)
+
+
+def _double_blur_adjoint(g: torch.Tensor, dim: int) -> torch.Tensor:
+    """The input gradient of ``_double_blur(x, dim)`` for its output
+    gradient ``g``: the stride-2 conv by the same (symmetric) taps, padded
+    by the 4 the transposed conv crops, then the edge pad folded back."""
+    k = _taps(_DOUBLE_BLUR, dim, g.shape[1], g.dtype, g.device)
+    strides, padding = ((2, 1), (4, 0)) if dim == 2 else ((1, 2), (0, 4))
+    gp = _DepthwiseConv.apply(g, k, strides, padding)
+    return _fold(gp, (0, 0, 1, 1) if dim == 2 else (1, 1, 0, 0), "replicate")
+
+
+class _Upsample2x(torch.autograd.Function):
+    """``upsample2x_plain`` of a whole map: the kernel on the card, the
+    plain version on the CPU; backward the adjoint of its two passes, W
+    first (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        if x.device.type == "cpu":
+            return upsample2x_plain(x)
+        return upsample_kernel.upsample2x(x.contiguous())
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        return _double_blur_adjoint(_double_blur_adjoint(g, 3), 2)
 
 
 def blur3(x: torch.Tensor) -> torch.Tensor:
@@ -280,7 +327,7 @@ def upsample2x(x: torch.Tensor, h: int | None = None) -> torch.Tensor:
     if halo.current() is not None:
         win = _double_blur_band(x, h)
         return _double_blur(win.rows, 3)[:, :, : win.keep]
-    return _double_blur(_double_blur(x, 2), 3)
+    return _Upsample2x.apply(x)
 
 
 def downsample2x(x: torch.Tensor, h: int | None = None) -> torch.Tensor:

@@ -5,6 +5,7 @@ GPU, each alternative timed against the others in one run, cold L2.
     python3 scripts/sweep_torch_kernels.py warp-variants
     python3 scripts/sweep_torch_kernels.py gather-variants
     python3 scripts/sweep_torch_kernels.py int8-variants
+    python3 scripts/sweep_torch_kernels.py up-plans
 
 ``in-plans``: the instance norm at the serving, D-step and fused-step sites
 under every block layout the kernel's entry takes (planes per block,
@@ -38,6 +39,12 @@ sites. Variants named ``x_*`` leave out one part of the work (the
 quantisation, the products, the weight copies, the raw input copies, the
 output stores), compute wrong results and are timed only, to show where
 the conv's time goes.
+
+``up-plans``: the 2x upsample kernel at the serving decode's two sites
+(``chip_smoke.UP_SITES``), bfloat16 and float32, under strip heights
+(input rows a thread walks) and block sizes, beside the pair that
+``ops/cuda/upsample.py`` picks (``ROWS``, ``THREADS``); the default is
+first held to the plain version, and every pair to the default bitwise.
 
 Builds go to ``build/sweep/``; results to ``chiprun_out/sweep_<what>.json``.
 Needs a CUDA card and nvcc.
@@ -118,6 +125,43 @@ def in_plans(torch) -> list:
         results.append({"site": [b, c, h, w, dtype_name], "bound_ms": bound, "ms": times,
                         "plan": chosen.__dict__})
         del x, want
+    return results
+
+
+def up_plans(torch) -> list:
+    from one_to_many_gan_torch.ops.cuda import upsample as up
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    flush = torch.zeros(128 * 2**20, dtype=torch.uint8, device="cuda")
+    results = []
+    for dtype_name in ("bfloat16", "float32"):
+        for site, shape in cs.UP_SITES.items():
+            x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(
+                getattr(torch, dtype_name))
+            pairs = [(rows, threads) for rows in (1, 2, 3, 4, 6, 8, 16)
+                     for threads in (128, 256, 512, 1024)]
+            first = up.upsample2x(x)
+            errs = cs.up_errors(torch, first, x)
+            cs.check(errs["max_abs_err"] <= errs["tol"] and errs["excess_vs_float32"] <= 0,
+                     f"upsample {site} {dtype_name}: {errs}")
+            for rows, threads in pairs:  # every pair computes the same expressions
+                cs.check(torch.equal(up.upsample2x(x, rows=rows, threads=threads), first),
+                         f"upsample rows {rows} threads {threads} differs from the default")
+            del first
+            fns = {f"r{rows}_t{threads}": (lambda t, r=rows, n=threads:
+                                           up.upsample2x(t, rows=r, threads=n))
+                   for rows, threads in pairs}
+            times = cs.time_cold_ms(torch, fns, x, flush, reps=7)
+            bound = up.bound_bytes(shape, x.element_size()) / cs.HBM_BYTES_PER_S * 1e3
+            chosen = f"r{up.ROWS[x.dtype]}_t{up.THREADS}"
+            ranked = sorted(times.items(), key=lambda kv: kv[1])
+            cs.log(f"upsample {site} {list(shape)} {dtype_name}: bound {bound:.4f} ms, chosen "
+                   f"{chosen} {times[chosen]:.4f} ({bound / times[chosen]:.1%}); "
+                   + " ".join(f"{k}={v:.4f}" for k, v in ranked[:8]) + " ... "
+                   + " ".join(f"{k}={v:.4f}" for k, v in ranked[-3:]))
+            results.append({"site": site, "shape": list(shape), "dtype": dtype_name,
+                            "bound_ms": bound, "ms": times, "chosen": chosen})
+            del x
     return results
 
 
@@ -388,7 +432,8 @@ def main() -> int:
 
     what = sys.argv[1] if len(sys.argv) > 1 else ""
     sweeps = {"in-plans": in_plans, "warp-variants": warp_variants,
-              "gather-variants": gather_variants, "int8-variants": int8_variants}
+              "gather-variants": gather_variants, "int8-variants": int8_variants,
+              "up-plans": up_plans}
     if what not in sweeps:
         print(__doc__, file=sys.stderr)
         return 2

@@ -31,9 +31,18 @@ version and to the whole-plane kernel at the same 2e-5 / 0.05, and two
 launches give the same bits. The int8 pre-pass and the fused int8 conv are held to
 their plain versions bitwise (the largest |value| is exact in any order,
 integer sums are exact in any order, and every rounding is the plain
-version's), and two launches give the same bits.
+version's), and two launches give the same bits. The 2x upsample kernel is
+held to its plain version (two cuDNN transposed convs, TF32 off) at the
+serving sites and at odd and degenerate sizes, on its vector and its
+scalar path, with ``chip_smoke.up_errors``: against the plain version in
+float32, float32 within 1e-6 of the largest |x| (nine taps summed in
+another order) and bfloat16 within half a bf16 ulp of each output more
+(the kernel rounds once); against the plain version in bfloat16, within
+3 * 2^-8 of the largest |x| (that version rounds between its passes too);
+two launches give the same bits.
 """
 
+import contextlib
 import math
 
 import pytest
@@ -724,3 +733,107 @@ def test_split_instance_norm_raises_instead_of_falling_back(cuda):
         in_module.instance_norm_apply(x, torch.zeros((2, 6, 2), device="cuda"))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         in_module.instance_norm_partials(x.half())
+
+
+# ------------------------------------------------------------- upsample
+
+# The serving decode's two upsample sites at a chunk of 86 images.
+UP_SITES = [(86, 256, 128, 64), (86, 128, 256, 128)]
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """The plain version's cuDNN convs in float32, not TF32."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+def _offset_view(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s values in a contiguous tensor that starts one element past an
+    allocation's start: off 16-byte alignment, so the kernel takes its
+    scalar path at any width."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+_UP_SMALL = [
+    (2, 3, 7, 9),  # odd H and W
+    (3, 5, 33, 130),  # odd H, W no multiple of 4
+    (2, 4, 1, 8),  # H = 1
+    (2, 4, 9, 1),  # W = 1
+    (1, 2, 1, 1),
+    (2, 16, 64, 32),  # several strips of rows
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    ("shape", "offset"),
+    [(s, False) for s in UP_SITES + _UP_SMALL] + [(s, True) for s in _UP_SMALL],
+)
+def test_upsample_kernel_matches_plain(cuda, shape, dtype, offset):
+    from one_to_many_gan_torch.ops.cuda import upsample as up
+
+    x = (torch.randn(shape, generator=cuda, device="cuda") * 2 + 0.5).to(dtype)
+    if offset:
+        x = _offset_view(x)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    before = up.upsample2x.launches
+    got = up.upsample2x(x)
+    again = up.upsample2x(x)
+    assert up.upsample2x.launches == before + 2
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (*shape[:2], 2 * shape[2], 2 * shape[3])
+    assert torch.equal(got, again)
+    errs = chip_smoke.up_errors(torch, got, x)
+    assert errs["max_abs_err"] <= errs["tol"] and errs["excess_vs_float32"] <= 0, errs
+
+
+def test_upsample_kernel_refuses_what_it_cannot_take(cuda):
+    from one_to_many_gan_torch.ops.cuda import upsample as up
+
+    before = up.upsample2x.launches
+    x = torch.randn((2, 4, 8, 8), generator=cuda, device="cuda")
+    with pytest.raises(ValueError, match="must be contiguous NCHW"):
+        up.upsample2x(x.transpose(2, 3))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        up.upsample2x(x.double())
+    with pytest.raises(ValueError, match="non-empty NCHW"):
+        up.upsample2x(x[:0])
+    with pytest.raises(ValueError, match="non-empty NCHW"):
+        up.upsample2x(x[0])
+    with pytest.raises(RuntimeError, match="launch failed"):
+        up.upsample2x(x, threads=48)
+    assert up.upsample2x.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_upsample_on_the_card_is_one_launch_with_the_plain_gradient(cuda, dtype):
+    """``resample.upsample2x`` on the card launches the kernel once (a
+    non-contiguous input made contiguous first), and its gradient equals
+    autograd through the plain version."""
+    from one_to_many_gan_torch.ops import resample
+    from one_to_many_gan_torch.ops.cuda import upsample as up
+
+    x = (torch.randn((2, 8, 30, 20), generator=cuda, device="cuda") * 2 + 0.5).to(dtype)
+    g = torch.randn((2, 8, 60, 40), generator=cuda, device="cuda").to(dtype)
+    before = up.upsample2x.launches
+    assert torch.equal(resample.upsample2x(x.transpose(2, 3).contiguous().transpose(2, 3)),
+                       resample.upsample2x(x))
+    assert up.upsample2x.launches == before + 2
+    grads = []
+    with _no_tf32():
+        for fn in (resample.upsample2x, resample.upsample2x_plain):
+            xr = x.clone().requires_grad_(True)
+            (fn(xr).float() * g.float()).sum().backward()
+            grads.append(xr.grad.float())
+    got, want = grads
+    assert got.abs().max().item() > 0
+    tol = (1e-5 if dtype == torch.float32 else 2**-7) * want.abs().max().item()
+    assert (got - want).abs().max().item() <= tol
